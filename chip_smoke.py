@@ -1,0 +1,467 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases; each one that fails exits non-zero:
+
+1. Print the card's name and power limit (``nvidia-smi``).
+2. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together).
+3. The main path, at a size users run: 2^22 FLIGHTDELAY flights from the
+   port's generator, joined to weather with ``fk_join`` (cancelled flights
+   masked invalid), streamed as 16 batches of 2^18 rows into
+   ``OnlineEngine`` on ``cuda`` with the specs and treatments of
+   ``examples/online_flight_delay.py``; then one batch retracted and
+   re-ingested; ``ate()`` for each treatment, whole and for 4 airports,
+   after every step. Every kernel launch counter is set to 0 just before
+   this phase and read just after it: each of the four kernels must have
+   launched. The same stream then runs through the port on the CPU (the
+   kernels' plain versions) and the two are held against each other:
+   keys, counts, masks, touch stamps and group counts exactly, float sums
+   and estimates within stated tolerances.
+4. Each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gave it, with timings of the kernel, the plain
+   version and one PyTorch library call computing the same function
+   (where there is one), and the least time the card could take.
+5. One steady-state window under ``torch.profiler`` (a retraction and
+   re-ingest of one batch, then a step's 15 uncached queries): the
+   device-busy share and the ops that took the most device time.
+6. Print ``{"kernels": [...]}``, then, last, the ``{"ok": true, ...}``
+   line.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+N_FLIGHTS = 1 << 22
+BATCH = 1 << 18
+AIRPORTS = (0, 1, 2, 3)
+SPEC_RANGES = {"w_precipm": (0, 3), "w_wspdm": (0, 80), "w_tempm": (-20, 40)}
+COVARIATES = {
+    "thunder": ["w_precipm", "w_wspdm"],
+    "snow": ["w_tempm", "w_wspdm"],
+    "highwind": ["w_precipm", "w_tempm"],
+}
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
+# outside the tensor cores. Every kernel here is f32 / integer work.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# Tolerances of the GPU-vs-CPU comparison of the port. Counts are integers
+# below 2^24 in f32 and the kernels pin every summation order, so both runs
+# are expected to agree bit for bit; the float tolerances below only bound
+# a difference in elementwise rounding between the two devices' math
+# libraries, should one appear.
+RTOL_SUMS = 1e-6
+RTOL_EST = 1e-5
+RTOL_VAR = 1e-4
+
+KERNEL_FILES = {
+    "cem_keys": ("src/repro_torch/csrc/cem_keys.cu",
+                 "src/repro/kernels/cem_keys.py:48"),
+    "segment_sums": ("src/repro_torch/csrc/segment_sums.cu",
+                     "src/repro/kernels/segment_stats.py:31"),
+    "scatter_merge": ("src/repro_torch/csrc/scatter_merge.cu",
+                      "src/repro/kernels/segment_stats.py:68"),
+    "chunk_sums": ("src/repro_torch/csrc/chunk_sums.cu",
+                   "src/repro/kernels/segment_stats.py:186"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def build_specs(CoarsenSpec):
+    specs = {
+        "airport": CoarsenSpec.categorical(16),
+        "carrier": CoarsenSpec.categorical(16),
+        "traffic": CoarsenSpec.equal_width(0, 40, 8),
+        "w_season": CoarsenSpec.equal_width(0, 1, 4),
+    }
+    for name, (lo, hi) in SPEC_RANGES.items():
+        specs[name] = CoarsenSpec.equal_width(lo, hi, 5)
+    return specs
+
+
+def timed(torch, fn, reps: int, warmup: int = 3) -> float:
+    """Mean device ms per call of ``fn`` over ``reps`` calls (CUDA events,
+    after ``warmup`` calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------- main path
+def run_stream(torch, OnlineEngine, specs, treatments, batches, device):
+    """The main path on one device. Returns (engine, estimates per step,
+    ingest ms list, query ms list)."""
+    eng = OnlineEngine(specs, treatments, outcome="dep_delay",
+                       query_dims=("airport",), device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    estimates, ingest_ms, query_ms = [], [], []
+
+    def step(batch, retract=False):
+        sync()
+        t0 = time.perf_counter()
+        eng.ingest(batch, retract=retract)
+        sync()
+        ingest_ms.append((time.perf_counter() - t0) * 1e3)
+        row = {}
+        for t in sorted(treatments):
+            for sub in (None, *AIRPORTS):
+                pop = None if sub is None else {"airport": [sub]}
+                t0 = time.perf_counter()
+                est = eng.ate(t, pop)
+                query_ms.append((time.perf_counter() - t0) * 1e3)
+                row[(t, sub)] = est
+        estimates.append(row)
+
+    for b in batches:
+        step(b)
+    step(batches[0], retract=True)
+    step(batches[0])
+    return eng, estimates, ingest_ms, query_ms
+
+
+def compare_runs(np, gpu_eng, cpu_eng, gpu_est, cpu_est):
+    """Hold the GPU run against the CPU run; returns a summary dict."""
+    s_g, s_c = gpu_eng.export_canonical(), cpu_eng.export_canonical()
+    bitwise = True
+    for name, vc in s_c["views"].items():
+        vg = s_g["views"][name]
+        for k in ("hi", "lo", "touch", "keep"):
+            if k in vc and not np.array_equal(vg[k], vc[k]):
+                fail(f"view {name}: {k} differs between cuda and cpu")
+        for k, col in vc["stats"].items():
+            g = vg["stats"][k]
+            if k == "one" or k.startswith("t_"):
+                if not np.array_equal(g, col):
+                    fail(f"view {name}: count column {k} differs")
+            elif not np.allclose(g, col, rtol=RTOL_SUMS, atol=1e-3):
+                fail(f"view {name}: stat {k} beyond rtol {RTOL_SUMS}")
+            bitwise &= bool(np.array_equal(g.view(np.uint32),
+                                           col.view(np.uint32)))
+    if s_g["scalars"]["ingest_count"] != s_c["scalars"]["ingest_count"]:
+        fail("ingest counts differ")
+    max_rel = 0.0
+    for rg, rc in zip(gpu_est, cpu_est):
+        for key, ec in rc.items():
+            eg = rg[key]
+            for f in ("n_groups", "n_matched_treated", "n_matched_control"):
+                if getattr(eg, f) != getattr(ec, f):
+                    fail(f"{key}: {f} differs")
+            for f, tol in (("ate", RTOL_EST), ("att", RTOL_EST),
+                           ("variance", RTOL_VAR)):
+                a, b = float(getattr(eg, f)), float(getattr(ec, f))
+                if not np.isfinite(a):
+                    fail(f"{key}: {f} is not finite")
+                rel = abs(a - b) / max(abs(b), 1e-6)
+                max_rel = max(max_rel, rel)
+                if rel > tol:
+                    fail(f"{key}: {f} {a} vs {b} beyond rtol {tol}")
+                bitwise &= a == b
+    return dict(bitwise=bitwise, max_rel_estimate_diff=max_rel,
+                groups={k: len(v["hi"]) for k, v in s_g["views"].items()})
+
+
+# ------------------------------------------------------- kernel checks
+def kernel_checks(torch, np, eng, batch, counts):
+    """Each kernel against its plain version at main-path shapes."""
+    from repro_torch.core import cube as cube_mod
+    from repro_torch.core import groupby
+    from repro_torch.core import fused as fused_mod
+    from repro_torch.kernels import cem_keys as ck
+    from repro_torch.kernels import segment_stats as ss
+
+    out = []
+    dev = eng.device
+    cols = {c: batch.columns[c] for c in eng._row_cols}
+    tab = eng._cutpoints
+    X = torch.stack([cols[n].to(torch.float32) for n in tab.names], 1)
+    valid = batch.valid.contiguous()
+    n, d = X.shape
+    tn = eng._tnames
+
+    def record(name, err, ms, plain_ms, lib_ms, n_bytes, n_ops, shapes):
+        b, by = bound_ms(n_bytes, n_ops)
+        src, rep = KERNEL_FILES[name]
+        out.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                        launches=counts[name], max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b, bound_us=b * 1e3,
+                        bound_by=by, library_ms=lib_ms, shapes=shapes))
+
+    # cem_keys: the batch's covariates, (2^18, 7)
+    args = (X, tab.cutpoints, tab.n_cuts, tab.widths, valid)
+    kh, kl = ck.cem_keys(*args)
+    ph, pl = ck.cem_keys_plain(*args)
+    err = float(max((kh - ph).abs().max(), (kl - pl).abs().max()))
+    if not (torch.equal(kh, ph) and torch.equal(kl, pl)):
+        fail(f"cem_keys differs from its plain version ({err})")
+    n_cuts = int(tab.n_cuts.sum())
+    # the bytes the function needs: X, the bool mask and the cutpoint
+    # table in, two u32 key words per row out; the port holds each word in
+    # an int64 tensor, so the kernel writes 16 bytes per row, not 8
+    needed = n * d * 4 + n + tab.cutpoints.numel() * 4 + n * 8
+    record("cem_keys", err, timed(torch, lambda: ck.cem_keys(*args), 50),
+           timed(torch, lambda: ck.cem_keys_plain(*args), 5), None,
+           needed, n * n_cuts,
+           dict(X=[n, d], cutpoints=list(tab.cutpoints.shape),
+                bytes_needed=needed, bytes_int64_layout=needed + n * 8))
+
+    # segment_sums: the delta build's group-by, (2^18, 12), over the
+    # G valid groups as the engine calls it (the trailing pseudo-group of
+    # invalid rows is not summed)
+    g = groupby.group_by_key(kh, kl)
+    vals = cube_mod.delta_stat_columns(cols, valid, tn, eng.outcome)
+    s = vals.shape[1]
+    n_delta = int(g.n_groups)
+    n_inv = int((~valid).sum())
+    sargs = (vals, g.perm, g.seg_ids, n_delta)
+    k_out = ss.segment_sums(*sargs)
+    p_out = ss.segment_sums_plain(*sargs)
+    err = float((k_out - p_out).abs().max())
+    if not torch.equal(k_out, p_out):
+        fail(f"segment_sums differs from its plain version ({err})")
+    # the library call adds every row, the invalid ones into row G
+    seg_orig = g.seg_ids[g.inv_perm()]
+    zeros = torch.zeros((n_delta + 1, s), dtype=torch.float32, device=dev)
+    summed = n - n_inv
+    record("segment_sums", err,
+           timed(torch, lambda: ss.segment_sums(*sargs), 50),
+           timed(torch, lambda: ss.segment_sums_plain(*sargs), 5),
+           timed(torch, lambda: zeros.index_add_(0, seg_orig, vals), 50),
+           summed * (s * 4 + 8) + n * 8 + n_delta * s * 4, summed * s,
+           dict(values=[n, s], segments=n_delta, rows_summed=summed))
+    # the trailing pseudo-group of invalid rows, alone: one long segment
+    # (the query's masked rows form such a segment, and it is summed)
+    inv_vals = vals[~valid].contiguous()
+    inv_perm = torch.arange(n_inv, device=dev)
+    inv_seg = torch.zeros((n_inv,), dtype=torch.int64, device=dev)
+    pseudo = dict(rows=n_inv, ms=timed(
+        torch, lambda: ss.segment_sums(inv_vals, inv_perm, inv_seg, 1), 20))
+
+    # scatter_merge: this batch's delta into the base view (fast path:
+    # the batch is already ingested), and a rolled-up view delta whose
+    # invalid tail rows are duplicate positions
+    d_hi, d_lo = g.group_hi[:n_delta], g.group_lo[:n_delta]
+    d_stats = k_out
+    base = eng.base
+    pos, found = groupby.lookup_rows_in_table(d_hi, d_lo, base.key_hi,
+                                              base.key_lo)
+    if not bool(found.all()):
+        fail("scatter_merge check: delta keys missing from the base view")
+    kt = ss.scatter_merge(base.stats.clone(), pos, d_stats)
+    pt = ss.scatter_merge_plain(base.stats.clone(), pos, d_stats)
+    err = float((kt - pt).abs().max())
+    if not torch.equal(kt, pt):
+        fail(f"scatter_merge differs from its plain version ({err})")
+    t = "thunder"
+    view = eng.views[t].cuboid
+    v_hi, v_lo, v_stats, v_gv = cube_mod.rollup_body(
+        eng.codec, eng.views[t].dims, d_hi, d_lo,
+        torch.ones((n_delta,), dtype=torch.bool, device=dev), d_stats)
+    vpos, _ = groupby.lookup_rows_in_table(v_hi, v_lo, view.key_hi,
+                                           view.key_lo)
+    dup = int((vpos[1:] == vpos[:-1]).sum())
+    if not bool((vpos[1:] >= vpos[:-1]).all()):
+        fail("fast-path positions are not non-decreasing")
+    kv = ss.scatter_merge(view.stats.clone(), vpos, v_stats.contiguous())
+    pv = ss.scatter_merge_plain(view.stats.clone(), vpos,
+                                v_stats.contiguous())
+    if not torch.equal(kv, pv):
+        fail("scatter_merge (view delta, duplicate positions) differs")
+    err = max(err, float((kv - pv).abs().max()))
+    # timed on the view delta: the main path's shape with a long run of
+    # duplicate positions (the rolled-up delta's invalid rows)
+    v_stats = v_stats.contiguous()
+    table = view.stats.clone()
+    lib_table = view.stats.clone()
+    touched = int(torch.unique(vpos).numel())
+    b = vpos.shape[0]
+    base_table = base.stats.clone()
+    record("scatter_merge", err,
+           timed(torch, lambda: ss.scatter_merge(table, vpos, v_stats), 50),
+           timed(torch, lambda: ss.scatter_merge_plain(table, vpos, v_stats),
+                 5),
+           timed(torch, lambda: lib_table.index_add_(0, vpos, v_stats), 50),
+           touched * s * 8 + b * 8 + b * s * 4, b * s,
+           dict(table=list(view.stats.shape), delta=[b, s],
+                duplicates=dup,
+                base_delta=[pos.shape[0], s], base_table=list(
+                    base.stats.shape),
+                base_delta_ms=timed(torch, lambda: ss.scatter_merge(
+                    base_table, pos, d_stats), 50)))
+
+    # chunk_sums: estimator stage 1 of a query on the thunder view
+    cols5 = [cube_mod.stat_column(tn, k)
+             for k in fused_mod.query_stat_names(t)[:5]]
+    cvals = view.stats[:, cols5].contiguous()
+    cn, cs = cvals.shape
+    kp, ktot = ss.chunk_sums(cvals)
+    pp, ptot = ss.chunk_sums_plain(cvals)
+    err = float((ktot - ptot).abs().max())
+    if not (torch.equal(kp, pp) and torch.equal(ktot, ptot)):
+        fail(f"chunk_sums differs from its plain version ({err})")
+    nb = kp.shape[0]
+    padded = torch.zeros((nb * ss.CANONICAL_BLOCK, cs), device=dev)
+    padded[:cn] = cvals
+    resh = padded.reshape(nb, ss.CANONICAL_BLOCK, cs)
+    record("chunk_sums", err,
+           timed(torch, lambda: ss.chunk_sums(cvals), 50),
+           timed(torch, lambda: ss.chunk_sums_plain(cvals), 5),
+           timed(torch, lambda: torch.sum(resh, dim=1), 50),
+           cn * cs * 4 + nb * cs * 4 + cs * 4, cn * cs,
+           dict(values=[cn, cs], chunks=nb))
+    return out, pseudo
+
+
+def profile_window(torch, eng, batch, treatments) -> dict:
+    """One steady-state window under ``torch.profiler``: a retraction and
+    re-ingest of an ingested batch, then every query of a step (all
+    uncached). Returns the device-busy share of the window and the ops
+    that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.ingest(batch, retract=True)
+        eng.ingest(batch)
+        for t in sorted(treatments):
+            for sub in (None, *AIRPORTS):
+                eng.ate(t, None if sub is None else {"airport": [sub]})
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    # device-side events only (kernels, copies, memsets): the host ops
+    # that launched them carry the same time again as "self device time"
+    from torch.autograd import DeviceType
+    rows = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    return dict(window="retract + re-ingest of one batch, 15 queries",
+                wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms if wall_ms else None,
+                top=[dict(op=k, device_ms=us / 1e3, calls=c)
+                     for k, us, c in rows[:15] if us > 0])
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             "a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.core import CoarsenSpec, OnlineEngine
+    from repro_torch.data import flightgen
+    from repro_torch.data.join import fk_join
+    from repro_torch.kernels import build
+
+    # phase 1: the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+
+    # phase 2: build every kernel from the checkout's sources
+    t0 = time.perf_counter()
+    built = build.build_all()
+    print(json.dumps({"build_s": time.perf_counter() - t0,
+                      "built": built}))
+
+    # phase 3: the main path
+    t0 = time.perf_counter()
+    data = flightgen.generate(n_flights=N_FLIGHTS, seed=0, device="cuda")
+    joined = fk_join(data.flights, data.weather,
+                     on={"airport": 64, "hour": 1 << 17}, prefix="w_")
+    joined = joined.filter(joined["cancelled"] == 0)
+    batches = [joined.slice(s, s + BATCH) for s in range(0, N_FLIGHTS, BATCH)]
+    torch.cuda.synchronize()
+    print(json.dumps({"data_s": time.perf_counter() - t0,
+                      "rows": N_FLIGHTS, "batches": len(batches),
+                      "invalid_rows": int((~joined.valid).sum())}))
+    specs = build_specs(CoarsenSpec)
+    shared = ["airport", "carrier", "traffic", "w_season"]
+    treatments = {t: shared + c for t, c in COVARIATES.items()}
+
+    build.reset_launches()
+    gpu_eng, gpu_est, ingest_ms, query_ms = run_stream(
+        torch, OnlineEngine, specs, treatments, batches, "cuda")
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+    t0 = time.perf_counter()
+    cpu_eng, cpu_est, cpu_ingest_ms, _ = run_stream(
+        torch, OnlineEngine, specs, treatments,
+        [b.to("cpu") for b in batches], "cpu")
+    cpu_s = time.perf_counter() - t0
+    summary = compare_runs(np, gpu_eng, cpu_eng, gpu_est, cpu_est)
+    final = {t: float(gpu_est[-1][(t, None)].ate) for t in COVARIATES}
+    print(json.dumps({
+        "main_path": {
+            "device": torch.cuda.get_device_name(0),
+            "ingests": len(ingest_ms), "queries": len(query_ms),
+            "ingest_ms_median": statistics.median(ingest_ms),
+            "ingest_ms_first": ingest_ms[0],
+            "ingest_ms_retract": ingest_ms[-2],
+            "ingest_ms_reingest": ingest_ms[-1],
+            "query_ms_median": statistics.median(query_ms),
+            "host_reads": gpu_eng.host_reads,
+            "cache_hits": gpu_eng.cache_hits,
+            "cache_misses": gpu_eng.cache_misses,
+            "launches": counts, "state": gpu_eng.stats(),
+            "ate": final,
+            "true_sate": {t: data.true_sate[t] for t in COVARIATES},
+            "cpu_pass_s": cpu_s,
+            "cpu_ingest_ms_median": statistics.median(cpu_ingest_ms),
+            "cuda_vs_cpu": summary}}))
+
+    # phase 4: every kernel against its plain version, timed
+    kernels, pseudo = kernel_checks(torch, np, gpu_eng, batches[1], counts)
+    print(json.dumps({"segment_sums_pseudo_group": pseudo}))
+
+    # phase 5: a steady-state window under the profiler
+    print(json.dumps({"profile": profile_window(
+        torch, gpu_eng, batches[2], treatments)}))
+
+    # phase 6: results
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,172 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here is marked ``cuda`` and skips without a CUDA device;
+the file imports torch, numpy and ``repro_torch`` only (no JAX), so it
+runs on a machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each kernel pins its summation order to its plain version's, so every
+comparison is bitwise.
+"""
+import numpy as np
+import pytest
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+
+
+def _t(a, dev):
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _case_cem_keys_matches_plain():
+    import torch
+    from repro_torch.kernels import cem_keys as ck
+    from repro_torch.kernels.ops import CutpointTable
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    n = (1 << 16) + 37
+    X = _t(rng.normal(0, 3, (n, 7)).astype(np.float32), dev)
+    valid = _t(rng.random(n) > 0.1, dev)
+    tab = CutpointTable.build([sorted(rng.normal(0, 2, k).tolist())
+                               for k in (1, 3, 5, 2, 15, 4, 4)],
+                              [1, 2, 3, 2, 4, 3, 3], "abcdefg", dev)
+    args = (X, tab.cutpoints, tab.n_cuts, tab.widths, valid)
+    before = ck.KERNEL.launches
+    kh, kl = ck.cem_keys(*args)
+    assert ck.KERNEL.launches == before + 1
+    ph, pl = ck.cem_keys_plain(*args)
+    assert torch.equal(kh, ph) and torch.equal(kl, pl)
+
+
+def _case_segment_sums_matches_plain(n_groups, invalid):
+    import torch
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    n, s = (1 << 16) + 5, 12
+    n_inv = int(n * invalid)
+    seg = np.sort(rng.integers(0, n_groups, n - n_inv))
+    _, seg = np.unique(seg, return_inverse=True)
+    seg = np.concatenate([seg, np.full(n_inv, seg.max() + 1)])
+    perm = rng.permutation(n)
+    vals = _t(rng.normal(0, 1, (n, s)).astype(np.float32), dev)
+    args = (vals, _t(perm.astype(np.int64), dev),
+            _t(seg.astype(np.int64), dev), n)
+    assert torch.equal(ss.segment_sums(*args), ss.segment_sums_plain(*args))
+
+
+def _case_scatter_merge_matches_plain():
+    import torch
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    c, b, s = 50000, 20000, 12
+    table = _t(rng.normal(0, 5, (c, s)).astype(np.float32), dev)
+    pos = np.sort(rng.integers(0, c, b)).astype(np.int64)
+    pos[-1000:] = c - 1                  # the invalid-row tail: one long run
+    vals = _t(rng.normal(0, 1, (b, s)).astype(np.float32), dev)
+    pos = _t(pos, dev)
+    got = ss.scatter_merge(table.clone(), pos, vals)
+    assert torch.equal(got, ss.scatter_merge_plain(table.clone(), pos, vals))
+    # an empty delta launches nothing and leaves the table as it was
+    before = ss.SCATTER_MERGE.launches
+    out = ss.scatter_merge(table.clone(), pos[:0], vals[:0])
+    assert torch.equal(out, table) and ss.SCATTER_MERGE.launches == before
+
+
+def _case_chunk_sums_matches_plain(n):
+    import torch
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    vals = _t(rng.normal(0, 100, (n, 5)).astype(np.float32), dev)
+    kp, kt = ss.chunk_sums(vals)
+    pp, pt = ss.chunk_sums_plain(vals)
+    assert torch.equal(kp, pp) and torch.equal(kt, pt)
+
+
+def _case_wrappers_refuse_what_the_kernels_do_not_take():
+    import torch
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    x = torch.zeros((8, 3), dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        ss.chunk_sums(x)
+    y = torch.zeros((3, 8), device=dev).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.chunk_sums(y)
+    with pytest.raises(ValueError):
+        ss.scatter_merge(torch.zeros((4, 2), device=dev),
+                         torch.zeros((2,), dtype=torch.int64),
+                         torch.zeros((2, 2), device=dev))
+
+
+def _case_engine_on_cuda_equals_engine_on_cpu():
+    """A small stream (ingests with growth, a retraction, a re-ingest)
+    through the engine on the card and on the CPU: the same snapshot and
+    the same estimates, bit for bit, with every kernel launched."""
+    from repro_torch.core import CoarsenSpec, OnlineEngine
+    from repro_torch.data.columnar import Table
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(4)
+    specs = {"a": CoarsenSpec.categorical(8),
+             "x": CoarsenSpec.equal_width(0, 1, 6),
+             "z": CoarsenSpec.equal_width(-2, 2, 5)}
+    treatments = {"t": ["a", "x"], "u": ["a", "z"]}
+
+    def batch(n):
+        cols = dict(a=rng.integers(0, 8, n).astype(np.int32),
+                    x=rng.random(n).astype(np.float32),
+                    z=rng.normal(0, 1, n).astype(np.float32),
+                    t=rng.integers(0, 2, n).astype(np.int32),
+                    u=rng.integers(0, 2, n).astype(np.int32),
+                    y=rng.normal(10, 3, n).astype(np.float32))
+        return cols, rng.random(n) > 0.1
+
+    batches = [batch(4000) for _ in range(3)]
+    engines = [OnlineEngine(specs, treatments, outcome="y",
+                            query_dims=("a",), granule=64, device=dev)
+               for dev in ("cuda", "cpu")]
+    build.reset_launches()
+    for eng in engines:
+        for cols, valid in (*batches, batches[0]):
+            eng.ingest(Table.from_numpy(cols, valid, device=eng.device))
+        eng.ingest(Table.from_numpy(*batches[1], device=eng.device),
+                   retract=True)
+    sg, sc = (e.export_canonical() for e in engines)
+    for name, vc in sc["views"].items():
+        vg = sg["views"][name]
+        for k in ("hi", "lo", "touch", "keep"):
+            if k in vc:
+                np.testing.assert_array_equal(vg[k], vc[k])
+        for k, col in vc["stats"].items():
+            np.testing.assert_array_equal(vg["stats"][k].view(np.uint32),
+                                          col.view(np.uint32))
+    for t in treatments:
+        for sub in (None, {"a": [0, 3]}):
+            eg, ec = (e.ate(t, sub) for e in engines)
+            for f in ("ate", "att", "variance", "n_groups",
+                      "n_matched_treated", "n_matched_control"):
+                assert getattr(eg, f) == getattr(ec, f), (t, sub, f)
+    assert all(v > 0 for v in build.launch_counts().values())
+
+
+def test_kernels_and_engine_on_the_card_match_plain(cuda):
+    """Every kernel against its plain version on the card, the wrappers'
+    guards, and the engine on the card against the engine on the CPU."""
+    _case_cem_keys_matches_plain()
+    for n_groups, invalid in ((5000, 0.3), (3, 0.9)):
+        _case_segment_sums_matches_plain(n_groups, invalid)
+    _case_scatter_merge_matches_plain()
+    for n in (1, 1024, 70001):
+        _case_chunk_sums_matches_plain(n)
+    _case_wrappers_refuse_what_the_kernels_do_not_take()
+    _case_engine_on_cuda_equals_engine_on_cpu()
