@@ -6,24 +6,37 @@
 Phases; each one that fails exits non-zero:
 
 1. Print the card's name and power limit (``nvidia-smi``).
-2. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+2. Build the five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together).
 3. The main path, at a size users run: 2^22 FLIGHTDELAY flights from the
    port's generator, joined to weather with ``fk_join`` (cancelled flights
-   masked invalid), streamed as 16 batches of 2^18 rows into
-   ``OnlineEngine`` on ``cuda`` with the specs and treatments of
-   ``examples/online_flight_delay.py``; then one batch retracted and
-   re-ingested; ``ate()`` for each treatment, whole and for 4 airports,
-   after every step. Every kernel launch counter is set to 0 just before
-   this phase and read just after it: each of the four kernels must have
-   launched. The same stream then runs through the port on the CPU (the
+   masked invalid), streamed as 16 batches of 2^18 rows into the default
+   ``OnlineEngine`` (its 8192-row streaming-propensity reservoir on) on
+   ``cuda`` with the specs and treatments of
+   ``examples/online_flight_delay.py``; a cold ``refresh_propensity`` of
+   ``thunder`` after the 16 ingests; then one batch retracted and
+   re-ingested and a warm refresh (the example's call); ``ate()`` for each
+   treatment, whole and for 4 airports, after every ingest; last,
+   ``propensity_scores`` of ``thunder`` over the whole 2^22-row joined
+   relation. Every kernel launch counter is set to 0 just before this
+   phase and read just after it: each of the five kernels must have
+   launched. The same path then runs through the port on the CPU (the
    kernels' plain versions) and the two are held against each other:
-   keys, counts, masks, touch stamps and group counts exactly, float sums
-   and estimates within stated tolerances.
+   keys, counts, masks, touch stamps, group counts, the reservoir and the
+   stream moments exactly, float sums, estimates and propensity models
+   within stated tolerances.
 4. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, with timings of the kernel, the plain
-   version and one PyTorch library call computing the same function
-   (where there is one), and the least time the card could take.
+   version and a PyTorch library yardstick computing the same function
+   (where there is one), and the least time the card could take;
+   ``logistic_newton_terms`` at both of its shapes (the reservoir,
+   8192 x 4, and the whole relation, 2^22 x 4), run twice to show
+   bitwise repeatability, and timed by CUDA events and by the profiler.
+   Then steady-state repeats of the propensity path (cold and warm fits
+   over the reservoir, ``propensity_scores``), and the main path's
+   stream four times more, without and with the reservoir in turns
+   (``reservoir_size`` 0, 8192, 8192, 0), for the ingest and query
+   medians of both configurations on the same card.
 5. One steady-state window under ``torch.profiler`` (a retraction and
    re-ingest of one batch, then a step's 15 uncached queries): the
    device-busy share and the ops that took the most device time.
@@ -62,6 +75,15 @@ PEAK_F32_OPS_PER_S = 67e12
 RTOL_SUMS = 1e-6
 RTOL_EST = 1e-5
 RTOL_VAR = 1e-4
+# Propensity models, card against CPU: 32 Newton steps whose g and H agree
+# up to the devices' exp (and their BLAS for the constant damping term
+# and LAPACK for the 4 x 4 solve), so w, mean and std within rel 1e-4;
+# ``converged`` equal. The Newton-terms kernel against its plain version
+# on the card: rel 1e-6 of each output's largest magnitude (the kernel's
+# expf against torch.exp; every sum order is pinned).
+RTOL_MODEL = 1e-4
+RTOL_NEWTON = 1e-6
+PROPENSITY = ("thunder", ("traffic", "w_precipm", "w_wspdm"))
 
 KERNEL_FILES = {
     "cem_keys": ("src/repro_torch/csrc/cem_keys.cu",
@@ -72,6 +94,8 @@ KERNEL_FILES = {
                       "src/repro/kernels/segment_stats.py:68"),
     "chunk_sums": ("src/repro_torch/csrc/chunk_sums.cu",
                    "src/repro/kernels/segment_stats.py:186"),
+    "logistic_newton_terms": ("src/repro_torch/csrc/logistic_grad.cu",
+                              "src/repro/kernels/logistic_grad.py:41"),
 }
 
 
@@ -108,6 +132,29 @@ def timed(torch, fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int = 20) -> dict:
+    """Device time per call of ``fn``, by kernel, under ``torch.profiler``
+    (after one warm-up call): what the card spends, without the host's
+    launch overhead that a CUDA-event loop of a short call measures.
+    Kernel names are cut at their first parenthesis."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            name = e.key.split("(")[0][-60:]
+            out[name] = out.get(name, 0.0) + \
+                e.self_device_time_total / 1e3 / reps
+    return dict(total=sum(out.values()), by_kernel=out)
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
@@ -115,13 +162,34 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 # ----------------------------------------------------------- main path
-def run_stream(torch, OnlineEngine, specs, treatments, batches, device):
-    """The main path on one device. Returns (engine, estimates per step,
-    ingest ms list, query ms list)."""
+def host_model(model) -> dict:
+    """A propensity model's tensors on the host."""
+    return {f: getattr(model, f).cpu().numpy()
+            for f in ("w", "mean", "std", "converged")}
+
+
+def run_stream(torch, OnlineEngine, specs, treatments, batches, device,
+               reservoir_size=8192):
+    """The main path's stream on one device. Returns (engine, estimates
+    per step, ingest ms list, query ms list, the refreshed models (cold,
+    warm) on the host, refresh ms list). ``reservoir_size=0`` runs the
+    ingests and queries alone (no refresh)."""
     eng = OnlineEngine(specs, treatments, outcome="dep_delay",
-                       query_dims=("airport",), device=device)
+                       query_dims=("airport",),
+                       reservoir_size=reservoir_size, device=device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     estimates, ingest_ms, query_ms = [], [], []
+    models, refresh_ms = [], []
+
+    def refresh():
+        if not reservoir_size:
+            return
+        sync()
+        t0 = time.perf_counter()
+        model = eng.refresh_propensity(PROPENSITY[0], list(PROPENSITY[1]))
+        sync()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        models.append(host_model(model))
 
     def step(batch, retract=False):
         sync()
@@ -141,9 +209,95 @@ def run_stream(torch, OnlineEngine, specs, treatments, batches, device):
 
     for b in batches:
         step(b)
+    refresh()                                    # cold: 32 Newton steps
     step(batches[0], retract=True)
     step(batches[0])
-    return eng, estimates, ingest_ms, query_ms
+    refresh()                                    # warm: 4 steps
+    return eng, estimates, ingest_ms, query_ms, models, refresh_ms
+
+
+def run_scores(torch, propensity_scores, table):
+    """``propensity_scores`` of the main path's treatment over the whole
+    joined relation. Returns (scores, model, ms)."""
+    sync = (torch.cuda.synchronize if table.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    ps, model = propensity_scores(table, PROPENSITY[0], list(PROPENSITY[1]))
+    sync()
+    return ps, model, (time.perf_counter() - t0) * 1e3
+
+
+def stream_op_counts(torch, eng, batch) -> dict:
+    """Device operations (aten ops, counted by a dispatch mode; each is a
+    kernel launch or a view) that one batch's streaming-propensity step
+    issues: the threefry draw of its priorities alone, and the whole update
+    and retraction. The steps run on the engine's stream without
+    committing (they are pure)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import fused as fused_mod
+    from repro_torch.core import prng
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cols = {c: batch.columns[c] for c in eng._row_cols}
+    key = prng.fold_in(prng.prng_key(eng.seed), eng.stream.n_batches)
+    out = {}
+    for name, fn in (
+            ("threefry_uniform",
+             lambda: prng.uniform(key, batch.nrows, eng.device)),
+            ("stream_update",
+             lambda: fused_mod.stream_step(eng.stream, cols, batch.valid,
+                                           False)),
+            ("stream_retract",
+             lambda: fused_mod.stream_step(eng.stream, cols, batch.valid,
+                                           True))):
+        with Count() as count:
+            fn()
+        out[name] = count.n
+    return out
+
+
+def compare_models(np, label, mg, mc):
+    """Card model against CPU model; returns the largest relative
+    difference."""
+    if bool(mg["converged"]) != bool(mc["converged"]):
+        fail(f"{label}: converged differs between cuda and cpu")
+    worst = 0.0
+    for f in ("w", "mean", "std"):
+        g, c = mg[f], mc[f]
+        if not np.isfinite(g).all():
+            fail(f"{label}: {f} is not finite")
+        rel = float(np.max(np.abs(g - c) / np.maximum(np.abs(c), 1e-3)))
+        worst = max(worst, rel)
+        if rel > RTOL_MODEL:
+            fail(f"{label}: {f} {g} vs {c} beyond rtol {RTOL_MODEL}")
+    return worst
+
+
+def compare_streams(np, sg, sc):
+    """The reservoir, priorities, moments and batch counter, card against
+    CPU: bit for bit."""
+    for k in ("n_batches", "capacity"):
+        if sg[k] != sc[k]:
+            fail(f"stream {k} differs: {sg[k]} vs {sc[k]}")
+    for k in ("pri", "n"):
+        if not np.array_equal(np.asarray(sg[k]).view(np.uint32),
+                              np.asarray(sc[k]).view(np.uint32)):
+            fail(f"stream {k} differs between cuda and cpu")
+    for part in ("res", "sums", "sumsqs"):
+        for c, col in sc[part].items():
+            if not np.array_equal(np.asarray(sg[part][c]).view(np.uint32),
+                                  np.asarray(col).view(np.uint32)):
+                fail(f"stream {part}[{c}] differs between cuda and cpu")
+    return dict(filled=int((sg["pri"] > -np.inf).sum()),
+                n=float(sg["n"]), n_batches=sg["n_batches"])
 
 
 def compare_runs(np, gpu_eng, cpu_eng, gpu_est, cpu_est):
@@ -184,7 +338,8 @@ def compare_runs(np, gpu_eng, cpu_eng, gpu_est, cpu_est):
                     fail(f"{key}: {f} {a} vs {b} beyond rtol {tol}")
                 bitwise &= a == b
     return dict(bitwise=bitwise, max_rel_estimate_diff=max_rel,
-                groups={k: len(v["hi"]) for k, v in s_g["views"].items()})
+                groups={k: len(v["hi"]) for k, v in s_g["views"].items()},
+                stream=compare_streams(np, s_g["stream"], s_c["stream"]))
 
 
 # ------------------------------------------------------- kernel checks
@@ -338,6 +493,129 @@ def kernel_checks(torch, np, eng, batch, counts):
     return out, pseudo
 
 
+def design(torch, X, model):
+    """The Newton terms' inputs as ``fit_logistic`` builds them: X
+    standardized by the model's (mean, std), with the bias column."""
+    Xs = (X - model.mean) / model.std
+    ones = torch.ones((X.shape[0], 1), dtype=torch.float32, device=X.device)
+    return torch.cat([Xs, ones], dim=1).contiguous()
+
+
+def newton_check(torch, Xb, t, m, w):
+    """``logistic_newton_terms`` against its plain version at one shape:
+    rel RTOL_NEWTON, two kernel runs bitwise equal. Returns the timings,
+    the error and the bound."""
+    from repro_torch.kernels import logistic_grad as lg
+    args = (Xb, t.to(torch.float32).contiguous(),
+            m.to(torch.float32).contiguous(), w.contiguous())
+    g, H = lg.logistic_newton_terms(*args)
+    g2, H2 = lg.logistic_newton_terms(*args)
+    if not (torch.equal(g, g2) and torch.equal(H, H2)):
+        fail("logistic_newton_terms: two runs differ")
+    pg, pH = lg.logistic_newton_terms_plain(*args)
+    err = 0.0
+    for a, b in ((g, pg), (H, pH)):
+        e = float((a - b).abs().max())
+        err = max(err, e)
+        if e > RTOL_NEWTON * float(b.abs().max()):
+            fail(f"logistic_newton_terms differs from its plain version "
+                 f"({e}) at {tuple(Xb.shape)}")
+    X, tt, mm, ww = args
+
+    def library():
+        p = torch.sigmoid(X @ ww)
+        return X.t() @ (mm * (p - tt)), (X * (mm * p * (1 - p))[:, None]
+                                         ).t() @ X
+
+    n, d = X.shape
+    # bytes: X, t and m read once, g and H written once. Operations per
+    # row: the logit (2d), p, r and s (7, exp counted as one), the g terms
+    # (2d) and the H terms (3 per upper-triangle entry)
+    n_bytes = n * (4 * d + 8) + (d + d * d) * 4
+    n_ops = n * (4 * d + 7 + 3 * d * (d + 1) // 2)
+    b, by = bound_ms(n_bytes, n_ops)
+    return dict(
+        err=err, ms=timed(torch, lambda: lg.logistic_newton_terms(*args), 50),
+        device_ms=device_ms(torch, lambda: lg.logistic_newton_terms(*args)),
+        plain_ms=timed(torch, lambda: lg.logistic_newton_terms_plain(*args),
+                       5),
+        library_ms=timed(torch, library, 50),
+        library_device_ms=device_ms(torch, library)["total"],
+        n_bytes=n_bytes, n_ops=n_ops, bound_ms=b, bound_by=by, shape=[n, d])
+
+
+def newton_checks(torch, eng, table, full_model, counts) -> dict:
+    """The Newton-terms kernel at the main path's two shapes: the
+    reservoir under the engine's last model, and the whole relation under
+    the full-table model."""
+    treatment, features = PROPENSITY
+    cols, rvalid = eng.stream.reservoir()
+    model = eng.models[treatment]
+    res = newton_check(torch, design(torch, torch.stack(
+        [cols[f] for f in features], -1), model), cols[treatment], rvalid,
+        model.w)
+    X = torch.stack([table[f].to(torch.float32) for f in features], -1)
+    full = newton_check(torch, design(torch, X, full_model),
+                        table[treatment], table.valid, full_model.w)
+    src, rep = KERNEL_FILES["logistic_newton_terms"]
+    return dict(
+        name="logistic_newton_terms", route="cuda", source=src,
+        replaces=rep, launches=counts["logistic_newton_terms"],
+        max_abs_err=max(res["err"], full["err"]), ms=full["ms"],
+        device_ms=full["device_ms"], plain_ms=full["plain_ms"],
+        bound_ms=full["bound_ms"],
+        bound_us=full["bound_ms"] * 1e3, bound_by=full["bound_by"],
+        library_ms=full["library_ms"],
+        library="torch.sigmoid(X @ w), X.T @ r, (X * s).T @ X: three "
+                "library calls (with their elementwise ops)",
+        library_device_ms=full["library_device_ms"],
+        shapes=dict(X=full["shape"], reservoir=res,
+                    note="ms (CUDA events around the wrapper call), "
+                         "device_ms (profiler, by kernel), plain_ms and "
+                         "the bound are the 2^22-row call "
+                         "(propensity_scores); reservoir: "
+                         "refresh_propensity"))
+
+
+def propensity_repeats(torch, eng, table) -> dict:
+    """Steady-state times of the propensity path (its first calls on the
+    main path include one-time costs: CUDA's lazy module loading and the
+    cuBLAS / cuSOLVER handles): a cold and a warm fit over the reservoir,
+    as ``refresh_propensity`` runs them, and ``propensity_scores`` over
+    the whole relation, each the median of 3 host-clocked runs ending in
+    a synchronise; then one warm fit under the profiler."""
+    from repro_torch.core.propensity import fit_logistic, propensity_scores
+    treatment, features = PROPENSITY
+    cols, rvalid = eng.stream.reservoir()
+    X = torch.stack([cols[f] for f in features], -1)
+    moments = eng.stream.moments(features)
+    model = eng.models[treatment]
+
+    def clocked(fn):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs)
+
+    def warm():
+        fit_logistic(X, cols[treatment], rvalid, n_iter=4, init=model)
+
+    warm_dev = device_ms(torch, warm, reps=5)
+    return dict(
+        cold_fit_ms=clocked(lambda: fit_logistic(
+            X, cols[treatment], rvalid, n_iter=32, moments=moments)),
+        warm_fit_ms=clocked(warm),
+        scores_ms=clocked(lambda: propensity_scores(table, treatment,
+                                                    list(features))),
+        warm_fit_device_ms=warm_dev["total"],
+        warm_fit_top=dict(sorted(warm_dev["by_kernel"].items(),
+                                 key=lambda kv: -kv[1])[:8]))
+
+
 def profile_window(torch, eng, batch, treatments) -> dict:
     """One steady-state window under ``torch.profiler``: a retraction and
     re-ingest of an ingested batch, then every query of a step (all
@@ -372,6 +650,7 @@ def profile_window(torch, eng, batch, treatments) -> dict:
 
 
 def main() -> None:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -382,6 +661,7 @@ def main() -> None:
     import numpy as np
 
     from repro_torch.core import CoarsenSpec, OnlineEngine
+    from repro_torch.core.propensity import propensity_scores
     from repro_torch.data import flightgen
     from repro_torch.data.join import fk_join
     from repro_torch.kernels import build
@@ -415,19 +695,35 @@ def main() -> None:
     treatments = {t: shared + c for t, c in COVARIATES.items()}
 
     build.reset_launches()
-    gpu_eng, gpu_est, ingest_ms, query_ms = run_stream(
-        torch, OnlineEngine, specs, treatments, batches, "cuda")
+    gpu_eng, gpu_est, ingest_ms, query_ms, gpu_models, refresh_ms = \
+        run_stream(torch, OnlineEngine, specs, treatments, batches, "cuda")
+    gpu_ps, gpu_full, scores_ms = run_scores(torch, propensity_scores,
+                                             joined)
     torch.cuda.synchronize()
     counts = build.launch_counts()
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     t0 = time.perf_counter()
-    cpu_eng, cpu_est, cpu_ingest_ms, _ = run_stream(
+    cpu_eng, cpu_est, cpu_ingest_ms, _, cpu_models, _ = run_stream(
         torch, OnlineEngine, specs, treatments,
         [b.to("cpu") for b in batches], "cpu")
+    cpu_ps, cpu_full, _ = run_scores(torch, propensity_scores,
+                                     joined.to("cpu"))
     cpu_s = time.perf_counter() - t0
     summary = compare_runs(np, gpu_eng, cpu_eng, gpu_est, cpu_est)
+    summary["model_max_rel"] = max(
+        compare_models(np, label, mg, mc) for label, mg, mc in zip(
+            ("cold refresh", "warm refresh"), gpu_models, cpu_models))
+    summary["full_model_max_rel"] = compare_models(
+        np, "propensity_scores", host_model(gpu_full), host_model(cpu_full))
+    ps_g, ps_c = gpu_ps.cpu().numpy(), cpu_ps.numpy()
+    if ps_g.shape != (N_FLIGHTS,) or not np.isfinite(ps_g).all():
+        fail("propensity scores: not finite or of the wrong shape")
+    summary["scores_max_abs_diff"] = float(np.abs(ps_g - ps_c).max())
+    if summary["scores_max_abs_diff"] > RTOL_MODEL:
+        fail(f"propensity scores differ by "
+             f"{summary['scores_max_abs_diff']} (> {RTOL_MODEL})")
     final = {t: float(gpu_est[-1][(t, None)].ate) for t in COVARIATES}
     print(json.dumps({
         "main_path": {
@@ -438,6 +734,15 @@ def main() -> None:
             "ingest_ms_retract": ingest_ms[-2],
             "ingest_ms_reingest": ingest_ms[-1],
             "query_ms_median": statistics.median(query_ms),
+            "refresh_ms": {"cold": refresh_ms[0], "warm": refresh_ms[1]},
+            "propensity_scores_ms": scores_ms,
+            "models": {"cold": {k: v.tolist() for k, v in
+                                gpu_models[0].items()},
+                       "warm": {k: v.tolist() for k, v in
+                                gpu_models[1].items()},
+                       "full": {k: v.tolist() for k, v in
+                                host_model(gpu_full).items()}},
+            "ops_per_ingest": stream_op_counts(torch, gpu_eng, batches[3]),
             "host_reads": gpu_eng.host_reads,
             "cache_hits": gpu_eng.cache_hits,
             "cache_misses": gpu_eng.cache_misses,
@@ -450,6 +755,21 @@ def main() -> None:
 
     # phase 4: every kernel against its plain version, timed
     kernels, pseudo = kernel_checks(torch, np, gpu_eng, batches[1], counts)
+    kernels.append(newton_checks(torch, gpu_eng, joined, gpu_full, counts))
+    # the same stream with and without the reservoir (the reference's
+    # default and its reservoir_size=0 configuration), in turns on this
+    # card: ingest / query medians of each run
+    turns = []
+    for size in (0, 8192, 8192, 0):
+        _, _, t_ingest, t_query, _, _ = run_stream(
+            torch, OnlineEngine, specs, treatments, batches, "cuda",
+            reservoir_size=size)
+        turns.append(dict(reservoir_size=size,
+                          ingest_ms_median=statistics.median(t_ingest),
+                          query_ms_median=statistics.median(t_query)))
+    print(json.dumps({"propensity": propensity_repeats(torch, gpu_eng,
+                                                       joined),
+                      "reservoir_turns": turns}))
     print(json.dumps({"segment_sums_pseudo_group": pseudo}))
 
     # phase 5: a steady-state window under the profiler
@@ -457,6 +777,7 @@ def main() -> None:
         torch, gpu_eng, batches[2], treatments)}))
 
     # phase 6: results
+    print(json.dumps({"total_s": time.perf_counter() - started}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

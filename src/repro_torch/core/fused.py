@@ -30,6 +30,7 @@ from repro_torch.core import groupby
 from repro_torch.core.ate import estimate_ate_from_stats
 from repro_torch.core.cem import overlap_keep, update_overlap
 from repro_torch.core.keys import INVALID_HI, INVALID_LO, KeyCodec
+from repro_torch.core.propensity import StreamStats
 from repro_torch.kernels.segment_stats import chunked_sums
 
 BASE_VIEW = "__base__"
@@ -119,6 +120,18 @@ def merge_slow(tname: Optional[str], treatments, st: Dict, g, n_merged: int,
         n = nstats[:, cube_mod.stat_column(treatments, "one")]
         new["keep"] = overlap_keep(ngv, nt, n - nt)
     return new
+
+
+def stream_step(stream: StreamStats, columns, valid: torch.Tensor,
+                retract: bool) -> StreamStats:
+    """Streaming-propensity update (moments + reservoir) of one ingest or
+    retraction (``fused.py:262`` of the reference). The engine runs it
+    after the retraction guards pass and before the views commit, over the
+    batch as given: threefry priorities depend only on a row's index, so
+    the reference's power-of-two batch padding changes no draw, and its
+    padding rows (invalid, past the end) are never among the survivors.
+    No host read: the update is device tensors and host counters only."""
+    return stream.update(columns, valid, retract=retract)
 
 
 def _neg_min(stats: torch.Tensor, treatments) -> torch.Tensor:

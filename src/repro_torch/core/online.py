@@ -12,7 +12,11 @@ from the materialized stats with the canonical chunked reductions (the
 ``chunk_sums`` kernel) and caches the answer until a delta touches its
 subpopulation. Retraction (``retract=True``) is exact sign-flipped delta
 maintenance, refused — with state untouched — when it would remove rows
-that were never ingested.
+that were never ingested. Every committed ingest and retraction also
+updates the streaming-propensity statistics (exact moments and a
+threefry priority reservoir, :mod:`repro_torch.core.propensity`), which
+:meth:`OnlineEngine.refresh_propensity` fits the propensity model over
+with the ``logistic_newton_terms`` kernel.
 
 Differences from the reference, all of them consequences of eager PyTorch:
 
@@ -28,6 +32,8 @@ Differences from the reference, all of them consequences of eager PyTorch:
   delta group count, verdicts), plus one when a view takes the re-sort
   path, one for a retraction's negativity guard and one per dim that a
   cached sub-population estimate filters on; an uncached query costs one.
+  The streaming-propensity step (moments + reservoir, on by default as in
+  the reference) adds none.
 - Paths not ported yet raise ``NotImplementedError`` naming the ROADMAP
   item that will port them.
 """
@@ -45,6 +51,8 @@ from repro_torch.core import groupby
 from repro_torch.core.ate import ATEEstimate
 from repro_torch.core.cem import make_codec
 from repro_torch.core.coarsen import CoarsenSpec
+from repro_torch.core.propensity import (LogisticModel, StreamStats,
+                                         fit_logistic)
 from repro_torch.data.columnar import Table, _round_capacity
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ops import CutpointTable
@@ -106,13 +114,16 @@ class OnlineEngine:
     granule:     capacity granule of the materialized views.
     delta_granule: granule of the ``delta_cap`` scalar (kept for snapshot
                  compatibility; deltas are built at their exact size).
-    seed:        part of the schema fingerprint, as in the reference.
+    reservoir_size: rows of streaming-propensity reservoir kept (default
+                 on, as in the reference, so ``refresh_propensity`` works
+                 without a row log); 0 disables it.
+    seed:        seeds the reservoir's priorities; part of the schema
+                 fingerprint, as in the reference.
     device:      where state lives and the kernels run (``cuda`` unless
                  named; raises without a card when not named).
 
     Arguments of the reference that select paths not ported yet raise
-    ``NotImplementedError``: ``keep_rows=True``, ``reservoir_size > 0``
-    (the reservoir's threefry priorities), a ``mesh``,
+    ``NotImplementedError``: ``keep_rows=True``, a ``mesh``,
     ``pipeline`` other than ``"fused1"``, ``query_pipeline="assemble"``
     and ``overlap=True``.
     """
@@ -121,7 +132,7 @@ class OnlineEngine:
                  treatments: Mapping[str, Sequence[str]], outcome: str,
                  query_dims: Sequence[str] = (), granule: int = 1024,
                  delta_granule: int = 256, keep_rows: bool = False,
-                 reservoir_size: int = 0, mesh=None, seed: int = 0,
+                 reservoir_size: int = 8192, mesh=None, seed: int = 0,
                  pipeline: str = "fused1", query_pipeline: str = "fused",
                  overlap: bool = False, device: DeviceLike = None):
         if pipeline not in ("fused1", "planner", "unfused"):
@@ -141,9 +152,6 @@ class OnlineEngine:
         if keep_rows:
             raise _not_ported("keep_rows=True",
                               "Queue 1 item 7 (durability: row log)")
-        if reservoir_size > 0:
-            raise _not_ported("reservoir_size > 0",
-                              "Queue 1 item 3b (streaming propensity)")
         self.device = resolve_device(device)
         self.seed = seed
         self.treatments = {t: tuple(sorted(c)) for t, c in treatments.items()}
@@ -164,6 +172,11 @@ class OnlineEngine:
         self._cutpoints = CutpointTable.for_codec(self.codec, self.specs,
                                                   self.device)
         self._init_state()
+        self.stream: Optional[StreamStats] = (
+            StreamStats.empty(self._row_cols, capacity=reservoir_size,
+                              seed=seed, device=self.device)
+            if reservoir_size > 0 else None)
+        self.models: Dict[str, LogisticModel] = {}
         self._ingest_count = 0
         self._state_version = 0
         self.n_rows_ingested = 0
@@ -363,7 +376,11 @@ class OnlineEngine:
                                                   self._tnames)])[0][0]
             if neg < -0.5:
                 self._raise_bad_retraction()
+        stream = (None if self.stream is None else fused_mod.stream_step(
+            self.stream, cols, batch.valid, retract))
         self._unpack_view_state(new)
+        if stream is not None:
+            self.stream = stream
         self.n_rows_ingested += -batch.nrows if retract else batch.nrows
         self._ingest_count += 1
         buckets: Dict[str, np.ndarray] = {}
@@ -444,21 +461,50 @@ class OnlineEngine:
         Never touches the device."""
         return self._cache.get((treatment, _freeze_subpop(subpopulation)))
 
+    # --------------------------------------------------------- propensity
+    def refresh_propensity(self, treatment: str, features: Sequence[str],
+                           step_budget: int = 4, cold_iters: int = 32,
+                           ridge: float = 1e-4) -> LogisticModel:
+        """(Re)fit the propensity model over the streaming reservoir
+        (``online.py:1761``): a cold Newton fit of ``cold_iters`` steps the
+        first time, standardized by the exact stream-wide moments; after
+        that a warm refit of ``step_budget`` steps from the previous
+        coefficients, keeping their frozen standardization. Each step's
+        g and H come from the ``logistic_newton_terms`` kernel. No host
+        read: the model's tensors stay on the device."""
+        if self.stream is None:
+            raise ValueError("refresh_propensity needs reservoir_size > 0 "
+                             "(keep_rows=True is not ported yet: see "
+                             "ROADMAP.md, Queue 1 item 7)")
+        prev = self.models.get(treatment)
+        cols, rvalid = self.stream.reservoir()
+        X = torch.stack([cols[f] for f in features], dim=-1)
+        moments = self.stream.moments(features) if prev is None else None
+        model = fit_logistic(
+            X, cols[treatment], rvalid,
+            n_iter=step_budget if prev is not None else cold_iters,
+            ridge=ridge, init=prev, moments=moments)
+        self.models[treatment] = model
+        return model
+
     # ------------------------------------------- durability (canonical)
     def schema_fingerprint(self) -> str:
-        """Stable description of the coarsening schema — the same string
-        the reference engine computes for the same schema (with no
-        reservoir), which is what lets its snapshots install here."""
+        """Stable description of the coarsening schema and the reservoir
+        capacity — the string the reference engine computes for the same
+        arguments, which is what lets snapshots move between the two."""
         return repr((tuple(sorted(self.specs.items())),
                      tuple(sorted(self.treatments.items())), self.outcome,
-                     tuple(sorted(self.query_dims)), self.seed, 0))
+                     tuple(sorted(self.query_dims)), self.seed,
+                     0 if self.stream is None else self.stream.capacity))
 
     def export_canonical(self) -> dict:
         """Layout-free host snapshot of the engine state, in the layout of
         the reference's ``export_canonical`` (``online.py:1806``): per view
         the valid groups, key-sorted, as uint32 key words, float32 stat
         columns by name, int32 touch stamps and (views) the bool overlap
-        keep; plus the counters, the estimate cache and the fingerprint."""
+        keep; the streaming-propensity section (reservoir columns by name,
+        priorities, moment sums, ``n_batches`` and capacity); plus the
+        counters, the estimate cache and the fingerprint. One host read."""
         names = (BASE_VIEW, *self._tnames)
         stat_keys = cube_mod.stat_names(self._tnames)
         fetch = []
@@ -468,6 +514,10 @@ class OnlineEngine:
                       self._touch[name], tab.stats.t().contiguous()]
             fetch.append(self.views[name].keep if name != BASE_VIEW
                          else tab.group_valid)
+        if self.stream is not None:
+            st = self.stream
+            fetch += [st.res.t().contiguous(), st.priority, st.n.reshape(1),
+                      st.sums, st.sumsqs]
         host = self._fetch(fetch)
         views = {}
         for i, name in enumerate(names):
@@ -495,6 +545,20 @@ class OnlineEngine:
             ingest_count=int(self._ingest_count),
             n_rows_ingested=int(self.n_rows_ingested),
             delta_cap=int(self._delta_cap)))
+        if self.stream is not None:
+            res_h, pri_h, n_h, sums_h, sumsqs_h = (
+                a.astype(np.float32) for a in host[6 * len(names):])
+            st = self.stream
+            res_m = res_h.reshape(len(st.names), -1)
+            snap["stream"] = dict(
+                res={c: np.ascontiguousarray(res_m[j])
+                     for j, c in enumerate(st.names)},
+                pri=pri_h, n=n_h.reshape(()),
+                sums={c: sums_h[j].reshape(()) for j, c in
+                      enumerate(st.names)},
+                sumsqs={c: sumsqs_h[j].reshape(()) for j, c in
+                        enumerate(st.names)},
+                n_batches=int(st.n_batches), capacity=int(st.capacity))
         snap["cache"] = tuple(
             (t, sub, dict(ate=e.ate, att=e.att,
                           n_matched_treated=e.n_matched_treated,
@@ -517,7 +581,8 @@ class OnlineEngine:
         if self._ingest_count or self.n_rows_ingested:
             raise ValueError(
                 "install_canonical requires a freshly constructed engine")
-        if snap.get("stream") is not None:
+        stream = snap.get("stream")
+        if (stream is None) != (self.stream is None):
             raise ValueError("snapshot/engine reservoir config mismatch "
                              "(reservoir_size)")
         if snap.get("rows") is not None:
@@ -525,6 +590,8 @@ class OnlineEngine:
                              "(keep_rows)")
         for name in (BASE_VIEW, *self._tnames):
             self._install_view(name, snap["views"][name])
+        if stream is not None:
+            self._install_stream(stream)
         self._cache = {}
         for t, sub, est in snap.get("cache", ()):
             key = (t, _freeze_subpop(sub) if sub else None)
@@ -534,6 +601,23 @@ class OnlineEngine:
         self.n_rows_ingested = int(sc["n_rows_ingested"])
         self._delta_cap = int(sc["delta_cap"])
         self._state_version = int(sc["state_version"])
+
+    def _install_stream(self, st: dict) -> None:
+        """The snapshot's streaming-propensity section (``online.py:1919``)
+        as this engine's :class:`StreamStats`."""
+        names = self.stream.names
+
+        def dev(a):
+            return torch.tensor(np.asarray(a, np.float32),
+                                device=self.device)
+
+        self.stream = dataclasses.replace(
+            self.stream,
+            res=dev(np.stack([np.asarray(st["res"][c]) for c in names], 1)),
+            priority=dev(st["pri"]), n=dev(np.asarray(st["n"]).reshape(())),
+            sums=dev([np.asarray(st["sums"][c]) for c in names]),
+            sumsqs=dev([np.asarray(st["sumsqs"][c]) for c in names]),
+            n_batches=int(st["n_batches"]))
 
     def _install_view(self, name: str, v: dict) -> None:
         """One canonical view as a sorted valid prefix padded with the

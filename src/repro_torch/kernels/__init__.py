@@ -5,6 +5,7 @@ plain PyTorch version.
   segment_stats  segment sums (GROUP BY core)        csrc/segment_sums.cu
                  fast-path scatter merge              csrc/scatter_merge.cu
                  canonical chunked query sums         csrc/chunk_sums.cu
+  logistic_grad  Newton terms of the propensity fit   csrc/logistic_grad.cu
 
 ``build.py`` compiles the sources with ``nvcc`` at first use and loads them
 through ``ctypes``; nothing is built or imported from a GPU toolchain when

@@ -149,6 +149,10 @@ KERNELS: Dict[str, Kernel] = {
     "chunk_sums": Kernel(
         "chunk_sums", "chunk_sums.cu", "chunk_sums_launch",
         [_P, _P, _P, _I64, _I32, _I64, _P]),
+    "logistic_newton_terms": Kernel(
+        "logistic_newton_terms", "logistic_grad.cu",
+        "logistic_newton_partials_launch",
+        [_P, _P, _P, _P, _P, _I64, _I32, _I64, _P]),
 }
 
 

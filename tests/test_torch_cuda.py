@@ -93,6 +93,59 @@ def _case_chunk_sums_matches_plain(n):
     assert torch.equal(kp, pp) and torch.equal(kt, pt)
 
 
+def _case_logistic_newton_terms_matches_plain(n, d):
+    """The Newton-terms kernel (then ``chunk_sums``) against its plain
+    version: rel 1e-6 of each output's largest magnitude (the kernel's
+    ``expf`` against ``torch.exp``; everything else is pinned), and two
+    runs bitwise equal."""
+    import torch
+    from repro_torch.kernels import logistic_grad as lg
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    X = rng.normal(0, 1, (n, d)).astype(np.float32)
+    X[:, -1] = 1.0
+    args = [_t(a, dev) for a in (
+        X, (rng.random(n) < 0.3).astype(np.float32),
+        (rng.random(n) < 0.9).astype(np.float32),
+        rng.normal(0, 0.5, d).astype(np.float32))]
+    before = lg.KERNEL.launches
+    g, H = lg.logistic_newton_terms(*args)
+    g2, H2 = lg.logistic_newton_terms(*args)
+    assert lg.KERNEL.launches == before + 2
+    assert torch.equal(g, g2) and torch.equal(H, H2)
+    assert torch.equal(H, H.t())
+    pg, pH = lg.logistic_newton_terms_plain(*args)
+    for a, b in ((g, pg), (H, pH)):
+        tol = 1e-6 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol, (n, d)
+    with pytest.raises(ValueError, match="outside"):
+        lg.logistic_newton_terms(torch.zeros((4, lg.MAX_D + 1), device=dev),
+                                 args[1][:4], args[2][:4],
+                                 torch.zeros((lg.MAX_D + 1,), device=dev))
+
+
+def _case_stream_step_reads_nothing_back():
+    """A reservoir ingest and a retraction on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: no op of the stream step
+    waits for the device."""
+    import torch
+    from repro_torch.core.propensity import StreamStats
+    rng = np.random.default_rng(6)
+    names = ("a", "b", "c")
+    cols = {c: _t(rng.normal(0, 1, 5000).astype(np.float32), "cuda")
+            for c in names}
+    valid = _t(rng.random(5000) > 0.1, "cuda")
+    st = StreamStats.empty(names, capacity=1024, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = st.update(cols, valid)
+        st = st.update(cols, valid, retract=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.n_batches == 2 and float(st.n) == 0.0
+
+
 def _case_wrappers_refuse_what_the_kernels_do_not_take():
     import torch
     from repro_torch.kernels import segment_stats as ss
@@ -111,8 +164,10 @@ def _case_wrappers_refuse_what_the_kernels_do_not_take():
 
 def _case_engine_on_cuda_equals_engine_on_cpu():
     """A small stream (ingests with growth, a retraction, a re-ingest)
-    through the engine on the card and on the CPU: the same snapshot and
-    the same estimates, bit for bit, with every kernel launched."""
+    through the engine on the card and on the CPU: the same snapshot
+    (views and the streaming-propensity section) and the same estimates,
+    bit for bit, the same propensity models within rel 1e-4, with every
+    kernel launched."""
     from repro_torch.core import CoarsenSpec, OnlineEngine
     from repro_torch.data.columnar import Table
     from repro_torch.kernels import build
@@ -133,15 +188,29 @@ def _case_engine_on_cuda_equals_engine_on_cpu():
 
     batches = [batch(4000) for _ in range(3)]
     engines = [OnlineEngine(specs, treatments, outcome="y",
-                            query_dims=("a",), granule=64, device=dev)
+                            query_dims=("a",), granule=64,
+                            reservoir_size=2048, device=dev)
                for dev in ("cuda", "cpu")]
     build.reset_launches()
     for eng in engines:
         for cols, valid in (*batches, batches[0]):
             eng.ingest(Table.from_numpy(cols, valid, device=eng.device))
+        eng.refresh_propensity("t", ["x", "z"])
         eng.ingest(Table.from_numpy(*batches[1], device=eng.device),
                    retract=True)
+        eng.refresh_propensity("t", ["x", "z"])
     sg, sc = (e.export_canonical() for e in engines)
+    for k in ("pri", "n", "n_batches"):
+        np.testing.assert_array_equal(sg["stream"][k], sc["stream"][k])
+    for part in ("res", "sums", "sumsqs"):
+        for c, col in sc["stream"][part].items():
+            np.testing.assert_array_equal(
+                sg["stream"][part][c].view(np.uint32), col.view(np.uint32))
+    mg, mc = (e.models["t"] for e in engines)
+    for f in ("w", "mean", "std"):
+        a, b = getattr(mg, f).cpu().numpy(), getattr(mc, f).numpy()
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    assert bool(mg.converged) == bool(mc.converged)
     for name, vc in sc["views"].items():
         vg = sg["views"][name]
         for k in ("hi", "lo", "touch", "keep"):
@@ -168,5 +237,8 @@ def test_kernels_and_engine_on_the_card_match_plain(cuda):
     _case_scatter_merge_matches_plain()
     for n in (1, 1024, 70001):
         _case_chunk_sums_matches_plain(n)
+    for n, d in ((8192, 4), (70001, 9), (5, 1), (3000, 64)):
+        _case_logistic_newton_terms_matches_plain(n, d)
+    _case_stream_step_reads_nothing_back()
     _case_wrappers_refuse_what_the_kernels_do_not_take()
     _case_engine_on_cuda_equals_engine_on_cpu()

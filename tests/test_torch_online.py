@@ -1,8 +1,10 @@
 """The ported slice as a whole: the reference ``repro.core.OnlineEngine``
-(JAX on the CPU, ``reservoir_size=0``) and ``repro_torch``'s engine
-(``device="cpu"``: the kernels' plain versions) take the same flightgen
-batches — ingests with capacity growth, a retraction, a bad retraction
-that both must refuse, a re-ingest — and are compared after every step:
+(JAX on the CPU) and ``repro_torch``'s engine (``device="cpu"``: the
+kernels' plain versions), both with ``reservoir_size=0`` (the reservoir
+is held against the reference in ``tests/test_torch_propensity.py``),
+take the same flightgen batches — ingests with capacity growth, a
+retraction, a bad retraction that both must refuse, a re-ingest — and are
+compared after every step:
 DeltaReport fields, ``ate()`` per treatment (whole and per airport),
 cache counters and ``export_canonical()``. Then the state carry-over:
 the reference's snapshot installs into the port and both ingest on.
@@ -106,7 +108,7 @@ def _step(eng, make_table, step):
 def _port_engine(**kw):
     from repro_torch.core import CoarsenSpec, OnlineEngine
     return OnlineEngine(_specs(CoarsenSpec), TREATMENTS, outcome="dep_delay",
-                        device="cpu", **ENGINE_KW, **kw)
+                        device="cpu", reservoir_size=0, **ENGINE_KW, **kw)
 
 
 def _port_run(steps, install=None):
@@ -391,6 +393,6 @@ def test_engine_contracts():
     _port_poison_batch_is_refused_before_any_mutation()
     for kw in (dict(mesh=object()), dict(overlap=True),
                dict(pipeline="planner"), dict(query_pipeline="assemble"),
-               dict(keep_rows=True), dict(reservoir_size=8192)):
+               dict(keep_rows=True)):
         _port_unported_path_raises(kw)
     _port_engine_without_device_raises_without_cuda()
