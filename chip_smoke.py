@@ -6,7 +6,7 @@
 Phases; each one that fails exits non-zero:
 
 1. Print the card's name and power limit (``nvidia-smi``).
-2. Build the five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+2. Build the six CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together).
 3. The main path, at a size users run: 2^22 FLIGHTDELAY flights from the
    port's generator, joined to weather with ``fk_join`` (cancelled flights
@@ -19,12 +19,23 @@ Phases; each one that fails exits non-zero:
    treatment, whole and for 4 airports, after every ingest; last,
    ``propensity_scores`` of ``thunder`` over the whole 2^22-row joined
    relation. Every kernel launch counter is set to 0 just before this
-   phase and read just after it: each of the five kernels must have
-   launched. The same path then runs through the port on the CPU (the
+   phase and read just after it: each of the five kernels of the
+   replicated path must have launched. The same path then runs through
+   the port on the CPU (the
    kernels' plain versions) and the two are held against each other:
    keys, counts, masks, touch stamps, group counts, the reservoir and the
    stream moments exactly, float sums, estimates and propensity models
    within stated tolerances.
+   The partitioned layout: the same stream (ingests, cold refresh,
+   retraction, re-ingest, warm refresh, queries) through
+   ``PartitionedOnlineEngine(n_parts=4)`` on ``cuda``, the launch counters
+   set to 0 just before and read just after it: ``scatter_merge_parts``
+   must have launched (the retraction's and the re-ingest's fast-path
+   merges), ``scatter_merge`` never, every other kernel of the path at
+   least once. Its state (every ``export_canonical`` field, the reservoir
+   included), every estimate of every step and both refreshed models must
+   equal the replicated card engine's bit for bit, and so must
+   ``matched_rows`` of every treatment over one batch.
 4. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, with timings of the kernel, the plain
    version and a PyTorch library yardstick computing the same function
@@ -32,14 +43,18 @@ Phases; each one that fails exits non-zero:
    ``logistic_newton_terms`` at both of its shapes (the reservoir,
    8192 x 4, and the whole relation, 2^22 x 4), run twice to show
    bitwise repeatability, and timed by CUDA events and by the profiler.
-   Then steady-state repeats of the propensity path (cold and warm fits
-   over the reservoir, ``propensity_scores``), and the main path's
-   stream four times more, without and with the reservoir in turns
-   (``reservoir_size`` 0, 8192, 8192, 0), for the ingest and query
-   medians of both configurations on the same card.
-5. One steady-state window under ``torch.profiler`` (a retraction and
-   re-ingest of one batch, then a step's 15 uncached queries): the
-   device-busy share and the ops that took the most device time.
+   ``scatter_merge_parts`` at the shapes of the partitioned retraction's
+   view merge. Then steady-state repeats of the propensity path (cold and
+   warm fits over the reservoir, ``propensity_scores``), and the main
+   path's stream six times more, in turns on the same card: replicated
+   without and with the reservoir, partitioned, replicated, partitioned,
+   replicated without (``reservoir_size`` 0, 8192, 8192 at n_parts=4,
+   8192, 8192 at n_parts=4, 0), for the ingest and query medians of each
+   configuration.
+5. One steady-state window under ``torch.profiler`` for each layout (a
+   retraction and re-ingest of one batch, then a step's 15 uncached
+   queries): the device-busy share and the ops that took the most device
+   time.
 6. Print ``{"kernels": [...]}``, then, last, the ``{"ok": true, ...}``
    line.
 """
@@ -84,6 +99,12 @@ RTOL_VAR = 1e-4
 RTOL_MODEL = 1e-4
 RTOL_NEWTON = 1e-6
 PROPENSITY = ("thunder", ("traffic", "w_precipm", "w_wspdm"))
+# the partition count a 4-card mesh would hold; on one card it gives the
+# partitioned merge kernel P > 1
+N_PARTS = 4
+# the kernels of each layout's path
+PARTITIONED_ONLY = ("scatter_merge_parts",)
+REPLICATED_ONLY = ("scatter_merge",)
 
 KERNEL_FILES = {
     "cem_keys": ("src/repro_torch/csrc/cem_keys.cu",
@@ -92,6 +113,8 @@ KERNEL_FILES = {
                      "src/repro/kernels/segment_stats.py:31"),
     "scatter_merge": ("src/repro_torch/csrc/scatter_merge.cu",
                       "src/repro/kernels/segment_stats.py:68"),
+    "scatter_merge_parts": ("src/repro_torch/csrc/scatter_merge_parts.cu",
+                            "src/repro/kernels/segment_stats.py:118"),
     "chunk_sums": ("src/repro_torch/csrc/chunk_sums.cu",
                    "src/repro/kernels/segment_stats.py:186"),
     "logistic_newton_terms": ("src/repro_torch/csrc/logistic_grad.cu",
@@ -168,15 +191,17 @@ def host_model(model) -> dict:
             for f in ("w", "mean", "std", "converged")}
 
 
-def run_stream(torch, OnlineEngine, specs, treatments, batches, device,
-               reservoir_size=8192):
-    """The main path's stream on one device. Returns (engine, estimates
-    per step, ingest ms list, query ms list, the refreshed models (cold,
-    warm) on the host, refresh ms list). ``reservoir_size=0`` runs the
-    ingests and queries alone (no refresh)."""
-    eng = OnlineEngine(specs, treatments, outcome="dep_delay",
-                       query_dims=("airport",),
-                       reservoir_size=reservoir_size, device=device)
+def run_stream(torch, engine_cls, specs, treatments, batches, device,
+               reservoir_size=8192, **engine_kw):
+    """The main path's stream on one device, through ``engine_cls``
+    (``OnlineEngine``, or ``PartitionedOnlineEngine`` with ``n_parts`` in
+    ``engine_kw``). Returns (engine, estimates per step, ingest ms list,
+    query ms list, the refreshed models (cold, warm) on the host, refresh
+    ms list). ``reservoir_size=0`` runs the ingests and queries alone (no
+    refresh)."""
+    eng = engine_cls(specs, treatments, outcome="dep_delay",
+                     query_dims=("airport",), reservoir_size=reservoir_size,
+                     device=device, **engine_kw)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     estimates, ingest_ms, query_ms = [], [], []
     models, refresh_ms = [], []
@@ -342,6 +367,59 @@ def compare_runs(np, gpu_eng, cpu_eng, gpu_est, cpu_est):
                 stream=compare_streams(np, s_g["stream"], s_c["stream"]))
 
 
+def same_bits(np, a, b, path, diffs):
+    """Append to ``diffs`` every leaf of two snapshots (nested dicts of
+    arrays and scalars) whose bits differ."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            diffs.append(f"{path}: keys differ")
+            return
+        for k in a:
+            same_bits(np, a[k], b[k], f"{path}.{k}", diffs)
+    elif isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            diffs.append(f"{path}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_bits(np, x, y, f"{path}[{i}]", diffs)
+    elif isinstance(a, np.ndarray):
+        b = np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8)):
+            diffs.append(path)
+    elif a != b:
+        diffs.append(path)
+
+
+def compare_layouts(torch, np, part, rep, batch, treatments):
+    """The partitioned card run against the replicated card run, bit for
+    bit: every ``export_canonical`` field (views, reservoir, moments,
+    counters, cache), every estimate of every step, both refreshed models,
+    and ``matched_rows`` of every treatment over ``batch``. ``part`` and
+    ``rep`` are (engine, estimates, models)."""
+    diffs = []
+    same_bits(np, part[0].export_canonical(), rep[0].export_canonical(),
+              "snapshot", diffs)
+    for i, (rp, rr) in enumerate(zip(part[1], rep[1])):
+        for key, er in rr.items():
+            for f in ("ate", "att", "variance", "n_groups",
+                      "n_matched_treated", "n_matched_control"):
+                same_bits(np, np.asarray(getattr(part[1][i][key], f)),
+                          np.asarray(getattr(er, f)), f"step {i} {key} {f}",
+                          diffs)
+    same_bits(np, list(part[2]), list(rep[2]), "models", diffs)
+    matched = {}
+    for t in sorted(treatments):
+        mp = part[0].matched_rows(t, batch)
+        mr = rep[0].matched_rows(t, batch)
+        if not torch.equal(mp, mr):
+            diffs.append(f"matched_rows {t}")
+        matched[t] = int(mr.sum())
+    if diffs:
+        fail(f"partitioned differs from replicated: {diffs[:10]}")
+    return dict(bitwise=True, steps=len(rep[1]), matched_rows=matched,
+                probe_rows=batch.nrows)
+
+
 # ------------------------------------------------------- kernel checks
 def kernel_checks(torch, np, eng, batch, counts):
     """Each kernel against its plain version at main-path shapes."""
@@ -491,6 +569,66 @@ def kernel_checks(torch, np, eng, batch, counts):
            cn * cs * 4 + nb * cs * 4 + cs * 4, cn * cs,
            dict(values=[cn, cs], chunks=nb))
     return out, pseudo
+
+
+def parts_kernel_check(torch, eng, batch, counts) -> dict:
+    """``scatter_merge_parts`` against its plain version at the shapes the
+    partitioned retraction gave it: ``batch``'s delta (sign-flipped),
+    rolled up to the ``thunder`` view, routed to the engine's partitions
+    and looked up in them — the fast path's input (the batch is
+    ingested)."""
+    from repro_torch.core import cube as cube_mod
+    from repro_torch.core import groupby
+    from repro_torch.kernels import segment_stats as ss
+
+    cols = {c: batch.columns[c] for c in eng._row_cols}
+    d_hi, d_lo, sums = cube_mod.delta_build_body(
+        cols, batch.valid, cutpoints=eng._cutpoints, treatments=eng._tnames,
+        outcome=eng.outcome, read_count=lambda n: int(n))
+    d_gv = torch.ones((d_hi.shape[0],), dtype=torch.bool, device=eng.device)
+    t = "thunder"
+    view = eng.views[t].cuboid
+    v_hi, v_lo, v_stats, v_gv = cube_mod.route_delta(
+        *cube_mod.rollup_body(eng.codec, eng.views[t].dims, d_hi, d_lo, d_gv,
+                              -sums), eng.n_parts)
+    pos, found = groupby.lookup_rows_in_table(v_hi, v_lo, view.key_hi,
+                                              view.key_lo)
+    if not bool((found | ~v_gv).all()):
+        fail("scatter_merge_parts check: delta keys missing from the view")
+    if not bool((pos[:, 1:] >= pos[:, :-1]).all()):
+        fail("partitioned fast-path positions decrease within a partition")
+    vals = v_stats.contiguous()
+    kt = ss.scatter_merge_parts(view.stats.clone(), pos, vals)
+    pt = ss.scatter_merge_parts_plain(view.stats.clone(), pos, vals)
+    err = float((kt - pt).abs().max())
+    if not torch.equal(kt, pt):
+        fail(f"scatter_merge_parts differs from its plain version ({err})")
+    p, c, s = view.stats.shape
+    b = pos.shape[1]
+    slots = (pos + c * torch.arange(p, device=eng.device)[:, None]).reshape(-1)
+    touched = int(torch.unique(slots).numel())
+    table, lib_table = view.stats.clone(), view.stats.clone().view(p * c, s)
+    flat_vals = vals.reshape(p * b, s)
+    # bytes as for scatter_merge: each touched cell read and written, each
+    # row's position and delta stats read once; one add per element
+    n_rows = p * b
+    bound, by = bound_ms(touched * s * 8 + n_rows * 8 + n_rows * s * 4,
+                         n_rows * s)
+    src, rep = KERNEL_FILES["scatter_merge_parts"]
+    return dict(
+        name="scatter_merge_parts", route="cuda", source=src, replaces=rep,
+        launches=counts["scatter_merge_parts"], max_abs_err=err,
+        ms=timed(torch, lambda: ss.scatter_merge_parts(table, pos, vals), 50),
+        device_ms=device_ms(
+            torch, lambda: ss.scatter_merge_parts(table, pos, vals))["total"],
+        plain_ms=timed(torch, lambda: ss.scatter_merge_parts_plain(
+            table, pos, vals), 5),
+        bound_ms=bound, bound_us=bound * 1e3, bound_by=by,
+        library_ms=timed(torch, lambda: lib_table.index_add_(
+            0, slots, flat_vals), 50),
+        library="index_add_ on the flattened (P*C, S) table at p*C + pos",
+        shapes=dict(tables=[p, c, s], delta=[p, b, s],
+                    valid_rows=int(v_gv.sum()), touched_slots=touched))
 
 
 def design(torch, X, model):
@@ -660,7 +798,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch.core import CoarsenSpec, OnlineEngine
+    from repro_torch.core import (CoarsenSpec, OnlineEngine,
+                                  PartitionedOnlineEngine)
     from repro_torch.core.propensity import propensity_scores
     from repro_torch.data import flightgen
     from repro_torch.data.join import fk_join
@@ -697,11 +836,13 @@ def main() -> None:
     build.reset_launches()
     gpu_eng, gpu_est, ingest_ms, query_ms, gpu_models, refresh_ms = \
         run_stream(torch, OnlineEngine, specs, treatments, batches, "cuda")
+    stream_reads = gpu_eng.host_reads
     gpu_ps, gpu_full, scores_ms = run_scores(torch, propensity_scores,
                                              joined)
     torch.cuda.synchronize()
     counts = build.launch_counts()
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k, v in counts.items()
+               if v == 0 and k not in PARTITIONED_ONLY]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     t0 = time.perf_counter()
@@ -753,28 +894,70 @@ def main() -> None:
             "cpu_ingest_ms_median": statistics.median(cpu_ingest_ms),
             "cuda_vs_cpu": summary}}))
 
+    # phase 3, partitioned: the same stream on the key-range partitioned
+    # layout, held bit for bit against the replicated card run
+    build.reset_launches()
+    part_eng, part_est, p_ingest_ms, p_query_ms, part_models, p_refresh_ms = \
+        run_stream(torch, PartitionedOnlineEngine, specs, treatments,
+                   batches, "cuda", n_parts=N_PARTS)
+    torch.cuda.synchronize()
+    part_counts = build.launch_counts()
+    part_reads = part_eng.host_reads
+    missing = [k for k, v in part_counts.items()
+               if v == 0 and k not in REPLICATED_ONLY]
+    if missing:
+        fail(f"kernels never launched on the partitioned path: {missing}")
+    if any(part_counts[k] for k in REPLICATED_ONLY):
+        fail(f"the partitioned path launched {REPLICATED_ONLY}: "
+             f"{part_counts}")
+    layouts = compare_layouts(torch, np,
+                              (part_eng, part_est, part_models),
+                              (gpu_eng, gpu_est, gpu_models), batches[5],
+                              treatments)
+    print(json.dumps({"partitioned": {
+        "n_parts": N_PARTS,
+        "ingests": len(p_ingest_ms), "queries": len(p_query_ms),
+        "ingest_ms_median": statistics.median(p_ingest_ms),
+        "ingest_ms_first": p_ingest_ms[0],
+        "ingest_ms_retract": p_ingest_ms[-2],
+        "ingest_ms_reingest": p_ingest_ms[-1],
+        "query_ms_median": statistics.median(p_query_ms),
+        "refresh_ms": {"cold": p_refresh_ms[0], "warm": p_refresh_ms[1]},
+        "host_reads": {"partitioned": part_reads,
+                       "replicated": stream_reads},
+        "launches": part_counts, "state": part_eng.stats(),
+        "vs_replicated": layouts}}))
+
     # phase 4: every kernel against its plain version, timed
     kernels, pseudo = kernel_checks(torch, np, gpu_eng, batches[1], counts)
+    kernels.insert(3, parts_kernel_check(torch, part_eng, batches[0],
+                                         part_counts))
     kernels.append(newton_checks(torch, gpu_eng, joined, gpu_full, counts))
-    # the same stream with and without the reservoir (the reference's
-    # default and its reservoir_size=0 configuration), in turns on this
-    # card: ingest / query medians of each run
+    # the same stream in turns on this card: replicated with and without
+    # the reservoir (the reference's default and its reservoir_size=0
+    # configuration) and partitioned, interleaved with the default:
+    # ingest / query medians of each run
     turns = []
-    for size in (0, 8192, 8192, 0):
+    for layout, size in (("replicated", 0), ("replicated", 8192),
+                         ("partitioned", 8192), ("replicated", 8192),
+                         ("partitioned", 8192), ("replicated", 0)):
+        kw = dict(n_parts=N_PARTS) if layout == "partitioned" else {}
         _, _, t_ingest, t_query, _, _ = run_stream(
-            torch, OnlineEngine, specs, treatments, batches, "cuda",
-            reservoir_size=size)
-        turns.append(dict(reservoir_size=size,
+            torch, PartitionedOnlineEngine if kw else OnlineEngine, specs,
+            treatments, batches, "cuda", reservoir_size=size, **kw)
+        turns.append(dict(layout=layout, reservoir_size=size,
                           ingest_ms_median=statistics.median(t_ingest),
                           query_ms_median=statistics.median(t_query)))
     print(json.dumps({"propensity": propensity_repeats(torch, gpu_eng,
                                                        joined),
-                      "reservoir_turns": turns}))
+                      "turns": turns}))
     print(json.dumps({"segment_sums_pseudo_group": pseudo}))
 
-    # phase 5: a steady-state window under the profiler
+    # phase 5: a steady-state window under the profiler, for each layout
     print(json.dumps({"profile": profile_window(
         torch, gpu_eng, batches[2], treatments)}))
+    print(json.dumps({"profile_partitioned": profile_window(
+        torch, part_eng, batches[2], treatments)}))
 
     # phase 6: results
     print(json.dumps({"total_s": time.perf_counter() - started}))

@@ -1,7 +1,7 @@
 # The online causal engine's ingest -> ate() path in PyTorch (replicated
-# layout), with its coarsening, key, group-by, CEM, estimator and cuboid
-# building blocks, and the streaming propensity model it refits. Counterpart
-# of repro.core for the ported slice.
+# and key-range partitioned layouts), with its coarsening, key, group-by,
+# CEM, estimator and cuboid building blocks, and the streaming propensity
+# model it refits. Counterpart of repro.core for the ported slice.
 from repro_torch.core.coarsen import CoarsenSpec, coarsen
 from repro_torch.core.keys import KeyCodec
 from repro_torch.core import groupby
@@ -12,6 +12,7 @@ from repro_torch.core.propensity import (LogisticModel, StreamStats,
                                          propensity_scores, warm_refit)
 from repro_torch.core import cube
 from repro_torch.core.online import (DeltaReport, OnlineEngine,
+                                     PartitionedOnlineEngine,
                                      PoisonBatchError)
 
 __all__ = [
@@ -19,5 +20,6 @@ __all__ = [
     "CEMGroups", "make_codec", "ATEEstimate", "estimate_ate_from_stats",
     "LogisticModel", "StreamStats", "fit_logistic", "predict_ps",
     "propensity_scores", "warm_refit",
-    "cube", "DeltaReport", "OnlineEngine", "PoisonBatchError",
+    "cube", "DeltaReport", "OnlineEngine", "PartitionedOnlineEngine",
+    "PoisonBatchError",
 ]

@@ -1,9 +1,13 @@
 """Group-stat tables (cuboids) of the online engine — counterpart of the
-parts of :mod:`repro.core.cube` that the replicated ingest path uses.
+parts of :mod:`repro.core.cube` that the replicated and the key-range
+partitioned ingest paths use.
 
 A :class:`Cuboid` is a key-sorted group-stat table: packed keys plus the
 decomposable sums (counts and first and second moments per treatment arm)
-that CEM and the ATE need, so rollups and merges are exact.
+that CEM and the ATE need, so rollups and merges are exact. A
+:class:`PartitionedCuboid` is ``P`` such tables stacked at one shared
+capacity: partition p holds the keys whose hash falls in the p-th range
+(:func:`partition_ids`).
 
 Layout: the stats of a table are ONE contiguous (C, S) float32 tensor,
 columns in ``sorted(stat_names(treatments))`` order — the order the
@@ -19,7 +23,9 @@ from typing import Callable, Mapping, Sequence, Tuple
 import torch
 
 from repro_torch.core import groupby
-from repro_torch.core.keys import INVALID_HI, INVALID_LO, KeyCodec
+from repro_torch.core.cem import overlap_keep
+from repro_torch.core.keys import INVALID_HI, INVALID_LO, MASK32, KeyCodec
+from repro_torch.kernels import segment_stats
 from repro_torch.kernels.ops import CutpointTable, cem_keys_columns
 
 
@@ -159,3 +165,151 @@ def pad_rows(x: torch.Tensor, n: int, fill) -> torch.Tensor:
     out = torch.full((n, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)
     out[:x.shape[0]] = x
     return out
+
+
+# ===================== key-range partitioned views ==========================
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2^32`` for u32 words ``a`` held in int64 and a u32
+    constant ``c``, in 16-bit halves of ``c`` so that no int64 product
+    overflows (a full u32 x u32 product would need 64 unsigned bits)."""
+    lo16 = a * (c & 0xFFFF)
+    hi16 = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo16 + hi16) & MASK32
+
+
+def _hash32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """32-bit avalanche hash of a packed (hi, lo) key — the murmur3
+    finalizer of ``cube.py:338``, in u32 arithmetic on int64 words: every
+    product is reduced mod 2^32 before the next shift, so ``>>`` never sees
+    a negative value."""
+    h = lo ^ _mul32(hi, 0x9E3779B1)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def partition_ids(hi: torch.Tensor, lo: torch.Tensor,
+                  n_parts: int) -> torch.Tensor:
+    """Owning partition of each key (``cube.py:351``): partition p owns the
+    p-th contiguous range of the hash space, ``(hash * n_parts) >> 32`` by
+    an exact multiply-high in 16-bit halves (any ``n_parts`` < 2^16).
+    Returns int64 ids in ``[0, n_parts)``."""
+    if n_parts == 1:
+        return torch.zeros_like(hi)
+    if n_parts >= 1 << 16:
+        raise ValueError(f"n_parts {n_parts} >= 2^16")
+    h = _hash32(hi, lo)
+    t = (h >> 16) * n_parts + (((h & 0xFFFF) * n_parts) >> 16)
+    return t >> 16
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedCuboid:
+    """Key-range partitioned group-stat table (``cube.py:372``): row p of
+    every tensor is partition p's sorted stat table, marker-padded to the
+    shared per-partition capacity C. Same stat schema and column order as
+    :class:`Cuboid`."""
+
+    codec: KeyCodec
+    key_hi: torch.Tensor       # (P, C) int64 u32 words
+    key_lo: torch.Tensor
+    stats: torch.Tensor        # (P, C, S) f32
+    group_valid: torch.Tensor  # (P, C) bool
+    treatments: Tuple[str, ...]
+
+    @property
+    def n_parts(self) -> int:
+        return int(self.key_hi.shape[0])
+
+    @property
+    def capacity(self) -> int:
+        """Slots PER PARTITION."""
+        return int(self.key_hi.shape[1])
+
+    def n_groups(self) -> torch.Tensor:
+        return self.group_valid.sum()
+
+
+def stack_partitions(parts: Sequence[Cuboid]) -> PartitionedCuboid:
+    """Stack per-partition tables, padded to the largest capacity
+    (``cube.py:467``)."""
+    cap = max(p.capacity for p in parts)
+    parts = [_pad_cuboid(p, cap) for p in parts]
+    return PartitionedCuboid(
+        codec=parts[0].codec,
+        key_hi=torch.stack([p.key_hi for p in parts]),
+        key_lo=torch.stack([p.key_lo for p in parts]),
+        stats=torch.stack([p.stats for p in parts]),
+        group_valid=torch.stack([p.group_valid for p in parts]),
+        treatments=parts[0].treatments)
+
+
+def empty_partitioned(codec: KeyCodec, treatments: Sequence[str],
+                      n_parts: int, capacity: int,
+                      device) -> PartitionedCuboid:
+    """All-invalid (P, capacity) table — the seed state of a partitioned
+    view."""
+    return stack_partitions([empty_cuboid(codec, treatments, capacity,
+                                          device)] * n_parts)
+
+
+def route_delta(hi: torch.Tensor, lo: torch.Tensor, stats: torch.Tensor,
+                gv: torch.Tensor, n_parts: int):
+    """Route a key-sorted delta stat table (unique valid keys, invalid rows
+    anywhere) to its owner partitions (``cube.py:580``). Returns (hi, lo,
+    stats, gv) with a leading ``n_parts`` axis and as many rows per
+    partition as the delta has (B): row p holds partition p's valid rows
+    in key order, then the invalid marker with zero stats. No host read:
+    a row's slot is its rank among the earlier rows of its partition (a
+    cumulative count), and invalid rows go to a partition past the last,
+    which is dropped. The stats are gathered, not re-summed, so they stay
+    exact."""
+    b = hi.shape[0]
+    pid = torch.where(gv, partition_ids(hi, lo, n_parts), n_parts)
+    # (P+1, B): the running count runs along the last axis (a scan down
+    # the leading axis of a (B, P+1) tensor is one thread per column)
+    onehot = torch.arange(n_parts + 1, device=hi.device)[:, None] == pid
+    rank = torch.cumsum(onehot, dim=1).gather(0, pid[None, :])[0] - 1
+
+    def place(x, fill):
+        out = torch.full((n_parts + 1, b, *x.shape[1:]), fill,
+                         dtype=x.dtype, device=x.device)
+        out[pid, rank] = x
+        return out[:n_parts]
+
+    return (place(hi, INVALID_HI), place(lo, INVALID_LO), place(stats, 0.0),
+            place(gv, False))
+
+
+def scatter_merge_stats_parts(stats: torch.Tensor, pos: torch.Tensor,
+                              delta_stats: torch.Tensor) -> torch.Tensor:
+    """Partition-local fast-path merge (``cube.py:603``), IN PLACE on the
+    (P, C, S) ``stats``: each partition's routed delta rows added onto its
+    own table at its (P, B) positions. On CUDA always the scatter-merge-
+    parts kernel (one launch for all partitions), whose precondition
+    (positions non-decreasing within each partition) the fast path meets.
+    Callers that may still refuse the merge pass a copy."""
+    return segment_stats.scatter_merge_parts(stats, pos.contiguous(),
+                                             delta_stats.contiguous())
+
+
+def unpartition_view(pcub: PartitionedCuboid, treatment: str
+                     ) -> Tuple[Cuboid, torch.Tensor]:
+    """(canonical cuboid, overlap keep) of one partitioned view
+    (``cube.py:522-546``): the (P, C) tables flattened and re-sorted into
+    ONE key-sorted table. Keys are distinct across partitions, so the
+    segment sums are gathers and the stats stay exact; the keep mask is
+    recomputed from them. The table is P*C rows long, its valid groups a
+    sorted prefix."""
+    g = groupby.group_by_key(pcub.key_hi.reshape(-1),
+                             pcub.key_lo.reshape(-1))
+    sums = groupby.segment_sums(
+        g, pcub.stats.reshape(-1, pcub.stats.shape[-1]), g.nrows)
+    nt = sums[:, stat_column(pcub.treatments, f"t_{treatment}")]
+    n = sums[:, stat_column(pcub.treatments, "one")]
+    return (Cuboid(codec=pcub.codec, key_hi=g.group_hi, key_lo=g.group_lo,
+                   stats=sums, group_valid=g.group_valid,
+                   treatments=pcub.treatments),
+            overlap_keep(g.group_valid, nt, n - nt))

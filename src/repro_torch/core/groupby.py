@@ -37,7 +37,7 @@ class Grouping:
 
     @property
     def nrows(self) -> int:
-        return int(self.perm.shape[0])
+        return int(self.perm.shape[-1])
 
     def inv_perm(self) -> torch.Tensor:
         """(N,) int64: original row -> sorted pos."""
@@ -50,21 +50,25 @@ def group_by_key(hi: torch.Tensor, lo: torch.Tensor) -> Grouping:
     """Group rows by (hi, lo) key. Invalid rows carry the all-ones marker
     and sort to the end, landing in a trailing pseudo-group flagged
     invalid. The sort is stable, so rows of one group keep their input
-    order — the order the segment-sum tree reduces them in."""
-    n = hi.shape[0]
-    skey, perm = torch.sort(sort_key(hi, lo), stable=True)
-    new_seg = torch.ones((n,), dtype=torch.bool, device=hi.device)
-    new_seg[1:] = skey[1:] != skey[:-1]
-    seg_ids = torch.cumsum(new_seg, dim=0) - 1
+    order — the order the segment-sum tree reduces them in. Keys with a
+    leading partition axis, (P, N), are grouped partition by partition in
+    one batched sort: every field of the grouping is then (P, N) and
+    ``n_groups`` (P,)."""
+    skey, perm = torch.sort(sort_key(hi, lo), dim=-1, stable=True)
+    new_seg = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
+    new_seg[..., 1:] = skey[..., 1:] != skey[..., :-1]
+    seg_ids = torch.cumsum(new_seg, dim=-1) - 1
     # group id -> key of its rows (every row of a segment has the same key)
-    group_hi = torch.full((n,), INVALID_HI, dtype=torch.int64,
-                          device=hi.device).scatter_(0, seg_ids, hi[perm])
-    group_lo = torch.full((n,), INVALID_LO, dtype=torch.int64,
-                          device=hi.device).scatter_(0, seg_ids, lo[perm])
+    group_hi = torch.full(hi.shape, INVALID_HI, dtype=torch.int64,
+                          device=hi.device).scatter_(-1, seg_ids,
+                                                     hi.gather(-1, perm))
+    group_lo = torch.full(hi.shape, INVALID_LO, dtype=torch.int64,
+                          device=hi.device).scatter_(-1, seg_ids,
+                                                     lo.gather(-1, perm))
     group_valid = ~((group_hi == INVALID_HI) & (group_lo == INVALID_LO))
     return Grouping(perm=perm, seg_ids=seg_ids, group_hi=group_hi,
                     group_lo=group_lo, group_valid=group_valid,
-                    n_groups=group_valid.sum())
+                    n_groups=group_valid.sum(-1))
 
 
 def segment_sums(g: Grouping, values: torch.Tensor,
@@ -94,9 +98,33 @@ def lookup_rows_in_table(hi: torch.Tensor, lo: torch.Tensor,
     """For each row key, its position in a *sorted* key table: the lower
     bound of the key (``searchsorted`` on the combined key, the same bound
     the reference's binary search finds, invalid rows included), clipped
-    to the last slot. Returns (pos int64, found bool)."""
+    to the last slot. Returns (pos int64, found bool). Tables and rows may
+    carry a leading partition axis — (P, C) tables, (P, B) rows — and row
+    p is then looked up in table p (the routed deltas of the partitioned
+    layout)."""
     pos = torch.searchsorted(sort_key(table_hi, table_lo),
                              sort_key(hi, lo), side="left")
-    pos = torch.clamp(pos, 0, table_hi.shape[0] - 1)
-    found = (table_hi[pos] == hi) & (table_lo[pos] == lo)
+    pos = torch.clamp(pos, 0, table_hi.shape[-1] - 1)
+    found = ((torch.gather(table_hi, -1, pos) == hi)
+             & (torch.gather(table_lo, -1, pos) == lo))
+    return pos, found
+
+
+def lookup_rows_in_parts(hi: torch.Tensor, lo: torch.Tensor,
+                         pid: torch.Tensor, table_hi: torch.Tensor,
+                         table_lo: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row lookup against a STACK of sorted key tables
+    (``groupby.py:188``): row i is searched in partition ``pid[i]`` of the
+    (P, C) tables. Every row is searched in each of the P tables (one
+    batched ``searchsorted``) and its own partition's answer kept. Returns
+    (pos, found) as :func:`lookup_rows_in_table`, ``pos`` indexing
+    partition ``pid[i]``'s slots, clipped to ``[0, C)``."""
+    n_parts, c = table_hi.shape
+    probe = sort_key(hi, lo)
+    every = torch.searchsorted(sort_key(table_hi, table_lo),
+                               probe.expand(n_parts, -1).contiguous(),
+                               side="left")
+    pos = torch.clamp(every.gather(0, pid[None, :])[0], 0, c - 1)
+    found = (table_hi[pid, pos] == hi) & (table_lo[pid, pos] == lo)
     return pos, found

@@ -1,6 +1,7 @@
-"""Online incremental causal inference on the replicated layout —
-counterpart of :class:`repro.core.online.OnlineEngine` for the ingest ->
-``ate()`` path.
+"""Online incremental causal inference — counterpart of
+:class:`repro.core.online.OnlineEngine` (the replicated layout) and of
+:class:`repro.core.online.PartitionedOnlineEngine` on one device (the
+key-range partitioned layout) for the ingest -> ``ate()`` path.
 
 A streamed batch is reduced to a tiny delta stat table (coarsen + pack ->
 group -> segment-sum: the ``cem_keys`` and ``segment_sums`` kernels), the
@@ -49,13 +50,14 @@ from repro_torch.core import cube as cube_mod
 from repro_torch.core import fused as fused_mod
 from repro_torch.core import groupby
 from repro_torch.core.ate import ATEEstimate
-from repro_torch.core.cem import make_codec
+from repro_torch.core.cem import CEMGroups, make_codec
 from repro_torch.core.coarsen import CoarsenSpec
+from repro_torch.core.keys import INVALID_HI, INVALID_LO
 from repro_torch.core.propensity import (LogisticModel, StreamStats,
                                          fit_logistic)
 from repro_torch.data.columnar import Table, _round_capacity
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.ops import CutpointTable
+from repro_torch.kernels.ops import CutpointTable, cem_keys_columns
 
 BASE_VIEW = fused_mod.BASE_VIEW
 
@@ -192,20 +194,24 @@ class OnlineEngine:
                                 | set(self.query_dims)))
             yield t, dims, make_codec({d: self.specs[d] for d in dims})
 
+    def _empty_table(self, codec):
+        """A view's seed table: all-invalid, one granule of slots."""
+        return cube_mod.empty_cuboid(codec, self._tnames, self._view_granule,
+                                     self.device)
+
     def _init_state(self) -> None:
-        self.base = cube_mod.empty_cuboid(self.codec, self._tnames,
-                                          self.granule, self.device)
+        self.base = self._empty_table(self.codec)
+        shape = tuple(self.base.key_hi.shape)
         self.views: Dict[str, _View] = {}
+        self._view_cutpoints: Dict[str, CutpointTable] = {}
         for t, dims, vcodec in self._view_schema():
             self.views[t] = _View(
-                treatment=t, dims=dims,
-                cuboid=cube_mod.empty_cuboid(vcodec, self._tnames,
-                                             self.granule, self.device),
-                keep=torch.zeros((self.granule,), dtype=torch.bool,
-                                 device=self.device))
+                treatment=t, dims=dims, cuboid=self._empty_table(vcodec),
+                keep=torch.zeros(shape, dtype=torch.bool, device=self.device))
+            self._view_cutpoints[t] = CutpointTable.for_codec(
+                vcodec, self.specs, self.device)
         self._touch: Dict[str, torch.Tensor] = {
-            name: torch.zeros((self.granule,), dtype=torch.int32,
-                              device=self.device)
+            name: torch.zeros(shape, dtype=torch.int32, device=self.device)
             for name in (BASE_VIEW, *self._tnames)}
 
     # ------------------------------------------------------- host reads
@@ -303,13 +309,26 @@ class OnlineEngine:
     def _view_table(self, name: str) -> cube_mod.Cuboid:
         return self.base if name == BASE_VIEW else self.views[name].cuboid
 
+    @property
+    def _view_granule(self) -> int:
+        """Capacity granule of a view's table (per partition on the
+        partitioned layout)."""
+        return self.granule
+
     def _grown_capacity(self, n_merged: int, capacity: int) -> int:
-        """Capacity growth rule of the re-sort path (``online.py:912``):
-        keep the capacity while the merged groups fit, else at least
-        double it, rounded to the granule."""
+        """Capacity growth rule of the re-sort path (``online.py:912``,
+        per partition ``online.py:2231``): keep the capacity while the
+        merged groups (of the fullest partition) fit, else at least double
+        it, rounded to the granule."""
         if n_merged <= capacity:
             return capacity
-        return _round_capacity(max(n_merged, 2 * capacity), self.granule)
+        return _round_capacity(max(n_merged, 2 * capacity),
+                               self._view_granule)
+
+    def _route(self, hi, lo, stats, gv):
+        """A view's delta in the layout of its table: as it is here; routed
+        to owner partitions on the partitioned layout."""
+        return hi, lo, stats, gv
 
     def ingest(self, batch: Table, retract: bool = False) -> DeltaReport:
         """Fold one streamed batch into every materialized view.
@@ -336,6 +355,7 @@ class OnlineEngine:
         for t in self._tnames:
             deltas[t] = cube_mod.rollup_body(self.codec, self.views[t].dims,
                                              d_hi, d_lo, d_gv, d_stats)
+        deltas = {name: self._route(*d) for name, d in deltas.items()}
         state = self._pack_view_state()
         names = (BASE_VIEW, *self._tnames)
         pos, oks = {}, []
@@ -361,16 +381,16 @@ class OnlineEngine:
                 slow[name] = fused_mod.merge_slow_groups(
                     state[name], v_hi, v_lo)
         if slow:
-            merged = self._fetch([torch.stack([g.n_groups for g in
-                                               slow.values()])])[0]
-            for (name, g), n_merged in zip(slow.items(), merged):
+            # merged group counts of every slow view's partitions
+            merged = self._fetch([g.n_groups for g in slow.values()])
+            for (name, g), counts in zip(slow.items(), merged):
+                n_merged = [int(n) for n in counts]
                 tname = None if name == BASE_VIEW else name
-                v_hi, v_lo, v_stats, v_gv = deltas[name]
                 cap = self._grown_capacity(
-                    int(n_merged), state[name]["hi"].shape[0])
+                    max(n_merged), state[name]["hi"].shape[-1])
                 new[name] = fused_mod.merge_slow(
-                    tname, self._tnames, state[name], g, int(n_merged), cap,
-                    v_hi, v_lo, v_stats, v_gv, counter)
+                    tname, self._tnames, state[name], g, n_merged, cap,
+                    *deltas[name], counter)
         if retract:
             neg = self._fetch([fused_mod._neg_min(new[BASE_VIEW]["stats"],
                                                   self._tnames)])[0][0]
@@ -426,6 +446,54 @@ class OnlineEngine:
         return tuple(dropped)
 
     # ------------------------------------------------------------ queries
+    def _view_state(self, treatment: str
+                    ) -> Tuple[cube_mod.Cuboid, torch.Tensor]:
+        """(canonical stat table, overlap keep) of one view: the view
+        itself here; the partitioned layout reassembles it."""
+        view = self.views[treatment]
+        return view.cuboid, view.keep
+
+    def cem_groups(self, treatment: str) -> CEMGroups:
+        """Current CEM group stats with the incrementally maintained
+        overlap mask (``online.py:1704``), in the form the offline path
+        produces. The grouping's row maps are placeholders: the groups come
+        from materialized stats, not from rows."""
+        cub, keep = self._view_state(treatment)
+
+        def col(name):
+            return cub.stats[:, cube_mod.stat_column(self._tnames, name)]
+
+        nt, yt = col(f"t_{treatment}"), col(f"yt_{treatment}")
+        rows = torch.zeros((cub.capacity,), dtype=torch.int64,
+                           device=self.device)
+        grouping = groupby.Grouping(
+            perm=rows, seg_ids=rows, group_hi=cub.key_hi,
+            group_lo=cub.key_lo, group_valid=cub.group_valid,
+            n_groups=cub.n_groups())
+        return CEMGroups(grouping=grouping, keep=keep, n_treated=nt,
+                         n_control=col("one") - nt, sum_y_t=yt,
+                         sum_y_c=col("y") - yt)
+
+    def _lookup_rows(self, table, hi, lo):
+        """(slot, found) of probe keys in a view's table: the lower-bound
+        position here; on the partitioned layout the slot of the flattened
+        (P*C) table in the row's owner partition."""
+        return groupby.lookup_rows_in_table(hi, lo, table.key_hi,
+                                            table.key_lo)
+
+    def matched_rows(self, treatment: str, table: Table) -> torch.Tensor:
+        """Row-level matched mask of ``table`` against the current state
+        (``online.py:1731``): coarsen + pack the probe rows over the view's
+        dims (the ``cem_keys`` kernel), look each key up in the
+        materialized view, and keep the rows whose group is found and
+        matched. No host read."""
+        view = self.views[treatment]
+        hi, lo = cem_keys_columns(
+            {d: table.columns[d] for d in view.dims}, table.valid,
+            self._view_cutpoints[treatment])
+        slot, found = self._lookup_rows(view.cuboid, hi, lo)
+        return table.valid.to(torch.bool) & found & view.keep.reshape(-1)[slot]
+
     def _estimate(self, treatment: str, subpop) -> Dict[str, torch.Tensor]:
         view = self.views[treatment]
         cub = view.cuboid
@@ -510,8 +578,9 @@ class OnlineEngine:
         fetch = []
         for name in names:
             tab = self._view_table(name)
+            stats = tab.stats.reshape(-1, tab.stats.shape[-1])
             fetch += [tab.group_valid, tab.key_hi, tab.key_lo,
-                      self._touch[name], tab.stats.t().contiguous()]
+                      self._touch[name], stats.t().contiguous()]
             fetch.append(self.views[name].keep if name != BASE_VIEW
                          else tab.group_valid)
         if self.stream is not None:
@@ -522,7 +591,7 @@ class OnlineEngine:
         views = {}
         for i, name in enumerate(names):
             gv_h, hi_h, lo_h, touch_h, stats_h, keep_h = host[6 * i:6 * i + 6]
-            gv = gv_h.astype(bool)
+            gv = gv_h.astype(bool)        # flattened: (P*C,) when partitioned
             hi = hi_h[gv].astype(np.uint32)
             lo = lo_h[gv].astype(np.uint32)
             order = np.lexsort((lo, hi))
@@ -658,4 +727,123 @@ class OnlineEngine:
             out[t] = {"capacity": self.views[t].cuboid.capacity,
                       "n_groups": host[1 + i],
                       "n_matched_groups": host[1 + len(self._tnames) + i]}
+        return out
+
+
+class PartitionedOnlineEngine(OnlineEngine):
+    """Online engine whose materialized views are key-range partitioned
+    (``online.py:2031``), on one device.
+
+    Every view is a :class:`repro_torch.core.cube.PartitionedCuboid` of
+    ``n_parts`` sorted tables at one shared per-partition capacity:
+    partition p holds the groups whose key hash falls in the p-th range
+    (:func:`repro_torch.core.cube.partition_ids`). An ingest builds the
+    delta and its rollups as the replicated engine does, ROUTES each to
+    its owner partitions (:func:`repro_torch.core.cube.route_delta`, no
+    host read), and merges per partition: the scatter-merge-parts kernel
+    (one launch for all partitions) when every delta key of every
+    partition is already materialized, else a per-partition re-sort with
+    the shared capacity grown by the rule of ``online.py:2231`` over the
+    fullest partition, at the granule ``max(64, ceil(granule /
+    n_parts))``. The host reads are the replicated engine's.
+
+    Partitioning changes where state lives, never what is maintained:
+    stats, matched sets, touch stamps, the reservoir and every estimate
+    are bit for bit the replicated engine's on the same stream, for any
+    ``n_parts``. ``ate()`` runs straight on the flattened (P*C) state;
+    ``matched_rows`` hashes each probe row to its owner partition and
+    searches that partition's table; ``cem_groups`` reassembles the view
+    canonically (:func:`repro_torch.core.cube.unpartition_view`).
+    ``refresh_propensity`` and the stream step are the replicated
+    engine's: the reservoir does not depend on the layout. Snapshots
+    (``export_canonical`` / ``install_canonical``) are layout-free, so a
+    replicated or partitioned snapshot, the reference's included, installs
+    into any ``n_parts``.
+
+    n_parts: number of key-range partitions, ``1 <= n_parts < 2^16``
+    (default 1, as the reference's without a mesh). All other arguments
+    are :class:`OnlineEngine`'s, and raise ``NotImplementedError`` as there
+    for the paths not ported (``mesh``, ``overlap=True``,
+    ``keep_rows=True``).
+    """
+
+    def __init__(self, specs: Mapping[str, CoarsenSpec],
+                 treatments: Mapping[str, Sequence[str]], outcome: str,
+                 n_parts: Optional[int] = None, **kwargs):
+        # read by _init_state, which the base constructor calls
+        self.n_parts = 1 if n_parts is None else int(n_parts)
+        if not 1 <= self.n_parts < 1 << 16:
+            raise ValueError(f"n_parts must be in [1, 2^16), got "
+                             f"{self.n_parts}")
+        super().__init__(specs, treatments, outcome, **kwargs)
+
+    @property
+    def _view_granule(self) -> int:
+        """Per-partition capacity granule (``online.py:2103``): hashing
+        spreads the groups evenly, so each partition holds ~1/n_parts."""
+        return max(64, -(-self.granule // self.n_parts))
+
+    def _empty_table(self, codec):
+        return cube_mod.empty_partitioned(codec, self._tnames, self.n_parts,
+                                          self._view_granule, self.device)
+
+    def _route(self, hi, lo, stats, gv):
+        return cube_mod.route_delta(hi, lo, stats, gv, self.n_parts)
+
+    def _lookup_rows(self, table, hi, lo):
+        pid = cube_mod.partition_ids(hi, lo, self.n_parts)
+        pos, found = groupby.lookup_rows_in_parts(hi, lo, pid, table.key_hi,
+                                                  table.key_lo)
+        return pid * table.capacity + pos, found
+
+    def _view_state(self, treatment: str
+                    ) -> Tuple[cube_mod.Cuboid, torch.Tensor]:
+        return cube_mod.unpartition_view(self.views[treatment].cuboid,
+                                          treatment)
+
+    def _install_view(self, name: str, v: dict) -> None:
+        """One canonical view scattered to its owner partitions
+        (``online.py:2335``): each partition's share of the key-sorted
+        groups stays key-sorted, and every partition is padded to one
+        shared capacity, the largest share rounded to the granule."""
+        hi_c = np.asarray(v["hi"], np.uint32).astype(np.int64)
+        lo_c = np.asarray(v["lo"], np.uint32).astype(np.int64)
+        n, n_parts = hi_c.shape[0], self.n_parts
+        pid = cube_mod.partition_ids(torch.from_numpy(hi_c),
+                                     torch.from_numpy(lo_c), n_parts).numpy()
+        counts = np.bincount(pid, minlength=n_parts)
+        cap = _round_capacity(max(int(counts.max()), 1), self._view_granule)
+        # rank of each group among its partition's (stable: key order)
+        order = np.argsort(pid, kind="stable")
+        rank = np.empty(n, np.int64)
+        rank[order] = np.arange(n) - np.repeat(np.cumsum(counts) - counts,
+                                               counts)
+
+        def place(a, fill, dtype):
+            out = np.full((n_parts, cap, *np.shape(a)[1:]), fill, dtype)
+            out[pid, rank] = a
+            return torch.from_numpy(out).to(self.device)
+
+        stats = np.zeros((n, len(cube_mod.stat_names(self._tnames))),
+                         np.float32)
+        for k, col in v["stats"].items():
+            stats[:, cube_mod.stat_column(self._tnames, k)] = col
+        tab = dataclasses.replace(
+            self._view_table(name), key_hi=place(hi_c, INVALID_HI, np.int64),
+            key_lo=place(lo_c, INVALID_LO, np.int64),
+            stats=place(stats, 0.0, np.float32),
+            group_valid=place(np.ones(n, bool), False, bool))
+        if name == BASE_VIEW:
+            self.base = tab
+        else:
+            self.views[name].cuboid = tab
+            self.views[name].keep = place(v["keep"], False, bool)
+        self._touch[name] = place(v["touch"], 0, np.int32)
+
+    def stats(self) -> Dict[str, Dict[str, int]]:
+        """Materialized-state summary (one host read); capacities are PER
+        PARTITION."""
+        out = super().stats()
+        for entry in out.values():
+            entry["n_parts"] = self.n_parts
         return out

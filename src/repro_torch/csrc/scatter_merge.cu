@@ -26,21 +26,6 @@
 // rows / 256) steps on its thread, not rows.
 #include "segment_tree.cuh"
 
-__global__ void scatter_fold_kernel(float* __restrict__ table,
-                                    const int64_t* __restrict__ pos,
-                                    const int64_t* __restrict__ starts,
-                                    const float* __restrict__ tiles,
-                                    long long b, int s, long long c) {
-  long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= b * s) return;
-  long long j = t / s;
-  int col = static_cast<int>(t - j * s);
-  int64_t p = pos[j];
-  if (p < 0 || p >= c || starts[p] != j) return;  // one thread per run
-  float run = run_tree(tiles, pos, j, p, b, s, col);
-  table[p * s + col] = table[p * s + col] + run;
-}
-
 // starts (C,) int64 filled with -1 and tiles (B, S) f32 scratch come from
 // the caller.
 extern "C" int scatter_merge_launch(void* table, const void* pos,

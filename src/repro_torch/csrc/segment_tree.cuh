@@ -16,6 +16,8 @@
 //   run_tree           the levels above a tile: the same tree over the run's
 //                      tile sums (a short last tile included), walked by one
 //                      thread per (run, column).
+// scatter_fold_kernel, the last step of both scatter merges, adds each run's
+// tree onto its table cell.
 // A walk keeps the pending left operands on a small stack — a binary
 // counter: pushing item r merges one level per trailing one bit of r — and
 // folds the stack at the end. No thread walks more than max(TILE, rows /
@@ -119,4 +121,22 @@ static inline cudaError_t run_tiles_launch(const float* vals,
   run_tiles_kernel<<<repro_blocks(n * s, threads), threads, 0, st>>>(
       vals, perm, keys, starts, tiles, n, s, g);
   return cudaGetLastError();
+}
+
+// The scatter merges' last step: table[p, :] += tree(run of p), one thread
+// per (run, column) — the run's first row finds itself in starts — so each
+// cell has ONE writer. Positions outside [0, c) are dropped.
+__global__ void scatter_fold_kernel(float* __restrict__ table,
+                                    const int64_t* __restrict__ pos,
+                                    const int64_t* __restrict__ starts,
+                                    const float* __restrict__ tiles,
+                                    long long b, int s, long long c) {
+  long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= b * s) return;
+  long long j = t / s;
+  int col = static_cast<int>(t - j * s);
+  int64_t p = pos[j];
+  if (p < 0 || p >= c || starts[p] != j) return;  // one thread per run
+  float run = run_tree(tiles, pos, j, p, b, s, col);
+  table[p * s + col] = table[p * s + col] + run;
 }

@@ -4,6 +4,7 @@ plain PyTorch version.
   cem_keys       fused coarsen + key pack            csrc/cem_keys.cu
   segment_stats  segment sums (GROUP BY core)        csrc/segment_sums.cu
                  fast-path scatter merge              csrc/scatter_merge.cu
+                 partitioned fast-path scatter merge  csrc/scatter_merge_parts.cu
                  canonical chunked query sums         csrc/chunk_sums.cu
   logistic_grad  Newton terms of the propensity fit   csrc/logistic_grad.cu
 

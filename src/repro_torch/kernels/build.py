@@ -146,6 +146,10 @@ KERNELS: Dict[str, Kernel] = {
     "scatter_merge": Kernel(
         "scatter_merge", "scatter_merge.cu", "scatter_merge_launch",
         [_P, _P, _P, _P, _P, _I64, _I32, _I64, _P]),
+    "scatter_merge_parts": Kernel(
+        "scatter_merge_parts", "scatter_merge_parts.cu",
+        "scatter_merge_parts_launch",
+        [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I64, _P]),
     "chunk_sums": Kernel(
         "chunk_sums", "chunk_sums.cu", "chunk_sums_launch",
         [_P, _P, _P, _I64, _I32, _I64, _P]),

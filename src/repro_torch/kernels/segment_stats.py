@@ -7,6 +7,8 @@ Replaces, in ``repro/kernels/segment_stats.py``:
 - ``segment_partials_pallas`` + ``combine_partials`` -> :func:`segment_sums`
   (``csrc/segment_sums.cu``)
 - ``scatter_merge_pallas`` -> :func:`scatter_merge` (``csrc/scatter_merge.cu``)
+- ``scatter_merge_parts_pallas`` -> :func:`scatter_merge_parts`
+  (``csrc/scatter_merge_parts.cu``)
 - ``chunk_sums_pallas`` + the sequential combine of ``chunked_sum``
   -> :func:`chunk_sums` (``csrc/chunk_sums.cu``)
 
@@ -19,7 +21,9 @@ vectorized tensor ops, so kernel and plain version agree bit for bit:
   segment's first row (``csrc/segment_tree.cuh`` builds it tile by tile,
   then the levels above a tile from the tile sums);
 - scatter merge: each destination's run of duplicate positions summed by
-  the same tree, in delta-row order, then added onto the table cell;
+  the same tree, in delta-row order, then added onto the table cell (per
+  partition, for the partitioned merge: runs are keyed by (partition,
+  position));
 - chunk sums: ten halving steps per 1024-row chunk, then the chunks
   combined strictly in order.
 
@@ -35,6 +39,7 @@ from repro_torch.kernels import build
 
 SEGMENT_SUMS = build.KERNELS["segment_sums"]
 SCATTER_MERGE = build.KERNELS["scatter_merge"]
+SCATTER_MERGE_PARTS = build.KERNELS["scatter_merge_parts"]
 CHUNK_SUMS = build.KERNELS["chunk_sums"]
 
 # canonical chunk width of the capacity-invariant query reductions
@@ -155,6 +160,59 @@ def scatter_merge(table: torch.Tensor, pos: torch.Tensor,
                              vals.data_ptr(), starts.data_ptr(),
                              tiles.data_ptr(), b, s, c)
     return table
+
+
+# ------------------------------------------------- partitioned scatter merge
+def _part_slots(pos: torch.Tensor, c: int) -> torch.Tensor:
+    """(P, B) partition-local positions -> (P*B,) slots ``p*C + pos`` of the
+    flattened (P*C) tables; positions outside [0, C) become -1 BEFORE the
+    offset, so they are dropped and never spill into a neighbour."""
+    p = pos.shape[0]
+    base = c * torch.arange(p, device=pos.device)[:, None]
+    return torch.where((pos >= 0) & (pos < c), pos + base, -1).reshape(-1)
+
+
+def scatter_merge_parts_plain(tables: torch.Tensor, pos: torch.Tensor,
+                              vals: torch.Tensor) -> torch.Tensor:
+    """IN PLACE: ``tables[p, pos[p, j]] += vals[p, j]`` for (P, C, S)
+    contiguous ``tables``, (P, B) int64 ``pos`` and (P, B, S) ``vals`` —
+    :func:`scatter_merge_plain` of partition p's rows onto partition p's
+    table, for every p, bit for bit: one flattened call whose runs are
+    keyed by (partition, position). Any order of ``pos`` is accepted here;
+    the kernel requires positions non-decreasing within each partition.
+    Returns ``tables``."""
+    p, c, s = tables.shape
+    scatter_merge_plain(tables.view(p * c, s), _part_slots(pos, c),
+                        vals.reshape(-1, s))
+    return tables
+
+
+def scatter_merge_parts(tables: torch.Tensor, pos: torch.Tensor,
+                        vals: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`scatter_merge_parts_plain` (in place). On
+    CUDA, ONE launch for all partitions; ``pos`` must be non-decreasing
+    within each partition — the partitioned fast path guarantees it — and
+    an empty delta launches nothing."""
+    if tables.device.type == "cpu":
+        return scatter_merge_parts_plain(tables, pos, vals)
+    dev = build.require_cuda("scatter_merge_parts", tables, pos, vals)
+    p, c, s = tables.shape
+    b = pos.shape[-1]
+    build.check("scatter_merge_parts tables", tables, torch.float32,
+                (p, c, s))
+    build.check("scatter_merge_parts pos", pos, torch.int64, (p, b))
+    build.check("scatter_merge_parts vals", vals, torch.float32, (p, b, s))
+    if p and b and s and c:
+        # scratch: each row's global slot (or -1), each slot's first row,
+        # and the tile sums
+        slots = torch.empty((p * b,), dtype=torch.int64, device=dev)
+        starts = torch.full((p * c,), -1, dtype=torch.int64, device=dev)
+        tiles = torch.empty((p * b, s), dtype=torch.float32, device=dev)
+        SCATTER_MERGE_PARTS.launch(dev, tables.data_ptr(), pos.data_ptr(),
+                                   vals.data_ptr(), slots.data_ptr(),
+                                   starts.data_ptr(), tiles.data_ptr(), p, b,
+                                   s, c)
+    return tables
 
 
 # -------------------------------------------------------- canonical sums

@@ -225,7 +225,150 @@ def _case_engine_on_cuda_equals_engine_on_cpu():
             for f in ("ate", "att", "variance", "n_groups",
                       "n_matched_treated", "n_matched_control"):
                 assert getattr(eg, f) == getattr(ec, f), (t, sub, f)
-    assert all(v > 0 for v in build.launch_counts().values())
+    # every kernel of the replicated path (the partitioned merge is not one)
+    assert all(v > 0 for k, v in build.launch_counts().items()
+               if k != "scatter_merge_parts")
+
+
+def _case_scatter_merge_parts_matches_plain(n_parts, b):
+    """The partitioned merge against its plain version, bitwise: positions
+    sorted within each partition with a long duplicate run at each
+    partition's end (the padding rows), equal positions on both sides of
+    the first partition boundary (b = 300: inside a 256-row tile),
+    out-of-range positions before a middle partition's start and past
+    another's end, an empty partition (every position past the end); one
+    launch, and none for the empty delta."""
+    import torch
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n_parts * 1000 + b)
+    c, s = 4000, 12
+    q, r = b // 4, b // 3
+
+    def part(p):
+        if p == 3:                                 # an empty partition
+            return np.full(b, c)
+        x = np.sort(rng.integers(0 if p == 2 else 100, c, b))
+        x[-r:] = c - 1                             # the padding rows' run
+        if n_parts == 1:
+            return x
+        if p == 0:                                 # ends at slot 100 ...
+            x = np.sort(rng.integers(0, 100, b))
+            x[-r:] = 100
+        if p == 1:                                 # ... where p=1 starts
+            x[:q] = 100
+            x[-9:] = c + 3                         # past the end: dropped
+        if p == 2:
+            x[:7] = -5                             # before the start
+        return x
+
+    pos = np.stack([part(p) for p in range(n_parts)])
+    tables = _t(rng.normal(0, 5, (n_parts, c, s)).astype(np.float32), dev)
+    vals = _t(rng.normal(0, 1, (n_parts, b, s)).astype(np.float32), dev)
+    pos = _t(pos.astype(np.int64), dev)
+    before = ss.SCATTER_MERGE_PARTS.launches
+    got = ss.scatter_merge_parts(tables.clone(), pos, vals)
+    assert ss.SCATTER_MERGE_PARTS.launches == before + 1
+    want = ss.scatter_merge_parts_plain(tables.clone(), pos, vals)
+    assert torch.equal(got, want)
+    for p in range(n_parts):               # = the single-table merge
+        assert torch.equal(got[p], ss.scatter_merge(
+            tables[p].clone(), pos[p].contiguous(), vals[p].contiguous()))
+    out = ss.scatter_merge_parts(tables.clone(), pos[:, :0].contiguous(),
+                                 vals[:, :0].contiguous())
+    assert torch.equal(out, tables)
+    assert ss.SCATTER_MERGE_PARTS.launches == before + 1
+    with pytest.raises(ValueError):
+        ss.scatter_merge_parts(tables, pos[0], vals)
+
+
+def _case_partitioned_engine_on_cuda_equals_engine_on_cpu():
+    """A small partitioned stream (ingests with growth, a retraction, a
+    re-ingest, ``ate()`` and ``matched_rows``) on the card and on the CPU:
+    the same snapshot and estimates and masks, bit for bit, with the
+    partitioned merge launched. The retraction and ``matched_rows`` run
+    under ``torch.cuda.set_sync_debug_mode("error")``: nothing waits for
+    the device but the engine's counted host reads."""
+    import torch
+    from repro_torch.core import CoarsenSpec, PartitionedOnlineEngine
+    from repro_torch.data.columnar import Table
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(8)
+    specs = {"a": CoarsenSpec.categorical(16),
+             "x": CoarsenSpec.equal_width(0, 1, 8),
+             "z": CoarsenSpec.equal_width(-2, 2, 6)}
+    treatments = {"t": ["a", "x"], "u": ["a", "z"]}
+
+    def batch(n, a_hi):
+        cols = dict(a=rng.integers(0, a_hi, n).astype(np.int32),
+                    x=rng.random(n).astype(np.float32),
+                    z=rng.normal(0, 1, n).astype(np.float32),
+                    t=rng.integers(0, 2, n).astype(np.int32),
+                    u=rng.integers(0, 2, n).astype(np.int32),
+                    y=rng.normal(10, 3, n).astype(np.float32))
+        return cols, rng.random(n) > 0.1
+
+    batches = [batch(3000, 4), batch(3000, 16), batch(3000, 16)]
+    probe = batch(5000, 16)
+    engines = [PartitionedOnlineEngine(specs, treatments, outcome="y",
+                                       n_parts=3, query_dims=("a",),
+                                       granule=128, reservoir_size=1024,
+                                       device=dev)
+               for dev in ("cuda", "cpu")]
+    build.reset_launches()
+    masks, fast = [], []
+    for eng in engines:
+        fetch = eng._fetch
+
+        def counted_read(tensors, fetch=fetch):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fetch(tensors)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        reports = [eng.ingest(Table.from_numpy(cols, valid,
+                                               device=eng.device))
+                   for cols, valid in batches]
+        for t in treatments:
+            eng.ate(t)
+        retract = Table.from_numpy(*batches[1], device=eng.device)
+        table = Table.from_numpy(*probe, device=eng.device)
+        torch.cuda.synchronize()
+        eng._fetch = counted_read
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rep = eng.ingest(retract, retract=True)
+            masks.append([eng.matched_rows(t, table) for t in treatments])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            eng._fetch = fetch
+        assert all(rep.fast_path.values())
+        reports += [rep, eng.ingest(retract)]
+        fast.append(sum(sum(r.fast_path.values()) for r in reports))
+    # one launch per fast-path view merge on the card, none on the CPU
+    assert build.launch_counts()["scatter_merge_parts"] == fast[0] >= 6
+    assert fast[0] == fast[1]
+    assert build.launch_counts()["scatter_merge"] == 0
+    for mg, mc in zip(*masks):
+        assert torch.equal(mg.cpu(), mc)
+    sg, sc = (e.export_canonical() for e in engines)
+    for name, vc in sc["views"].items():
+        vg = sg["views"][name]
+        for k in ("hi", "lo", "touch", "keep"):
+            if k in vc:
+                np.testing.assert_array_equal(vg[k], vc[k])
+        for k, col in vc["stats"].items():
+            np.testing.assert_array_equal(vg["stats"][k].view(np.uint32),
+                                          col.view(np.uint32))
+    np.testing.assert_array_equal(sg["stream"]["pri"], sc["stream"]["pri"])
+    assert engines[0].stats() == engines[1].stats()
+    for t in treatments:
+        for sub in (None, {"a": [0, 3]}):
+            eg, ec = (e.ate(t, sub) for e in engines)
+            for f in ("ate", "att", "variance", "n_groups",
+                      "n_matched_treated", "n_matched_control"):
+                assert getattr(eg, f) == getattr(ec, f), (t, sub, f)
 
 
 def test_kernels_and_engine_on_the_card_match_plain(cuda):
@@ -242,3 +385,11 @@ def test_kernels_and_engine_on_the_card_match_plain(cuda):
     _case_stream_step_reads_nothing_back()
     _case_wrappers_refuse_what_the_kernels_do_not_take()
     _case_engine_on_cuda_equals_engine_on_cpu()
+
+
+def test_partitioned_merge_and_engine_on_the_card_match_plain(cuda):
+    """The partitioned merge kernel against its plain version, and the
+    partitioned engine on the card against the engine on the CPU."""
+    for n_parts, b in ((1, 300), (3, 300), (4, 300), (4, 5000)):
+        _case_scatter_merge_parts_matches_plain(n_parts, b)
+    _case_partitioned_engine_on_cuda_equals_engine_on_cpu()

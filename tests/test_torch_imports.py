@@ -23,7 +23,10 @@ for name in names:                    # each one first, as a user may
     importlib.import_module(name)
 import chip_smoke                     # its top-level import graph
 # what chip_smoke.main() imports once it has found a card
-from repro_torch.core import CoarsenSpec, OnlineEngine
+from repro_torch.core import CoarsenSpec, OnlineEngine, PartitionedOnlineEngine
+from repro_torch.core.cube import partition_ids, route_delta, unpartition_view
+from repro_torch.core.groupby import lookup_rows_in_parts
+from repro_torch.kernels.segment_stats import scatter_merge_parts
 from repro_torch.data import flightgen
 from repro_torch.data.join import fk_join
 from repro_torch.kernels import build
