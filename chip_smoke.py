@@ -6,8 +6,8 @@
 Phases; each one that fails exits non-zero:
 
 1. Print the card's name and power limit (``nvidia-smi``).
-2. Build the six CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all started together).
+2. Build the eight CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all started together).
 3. The main path, at a size users run: 2^22 FLIGHTDELAY flights from the
    port's generator, joined to weather with ``fk_join`` (cancelled flights
    masked invalid), streamed as 16 batches of 2^18 rows into the default
@@ -36,6 +36,24 @@ Phases; each one that fails exits non-zero:
    included), every estimate of every step and both refreshed models must
    equal the replicated card engine's bit for bit, and so must
    ``matched_rows`` of every treatment over one batch.
+   The offline path (the paper's Table 3, ``benchmarks/bench_quality.py``,
+   treatment ``snow``), the launch counters set to 0 just before and read
+   just after it: on the whole 2^22-row relation, CEM (the Table 3 specs)
+   and EM (airport, carrier) with ``estimate_ate`` and its variance, the
+   difference in means, the raw imbalance, ``propensity_scores``, NNMWR on
+   the propensity distance (1-D engine, k = 1, caliper 0.001) with its
+   ATT, subclassification (5 subclasses, trim 0.1 / 0.9), AWMD of the
+   Table 3 covariates; on its first 2^17 rows (a random sample), the
+   Mahalanobis rotation of the five propensity features, NNMWR (k = 1,
+   caliper 0.5) and NNMNR (k = 1, m = 8) on the quadratic engine — one
+   2^17 x 2^17 ``knn_topk`` launch each, and a sweep over 2^17 x 8 edges —
+   and NNMNR on the propensity distance. ``knn_topk`` and
+   ``greedy_sweep`` must launch on it and on no other path. The same
+   calls then run through the port on the CPU: part 1 given the card's
+   scores, part 2 on the first 2^14 rows given the card's rotation (and
+   the card reruns them there); masks, keys, group ids, counts, matched
+   indices, distances, ``ok`` and taken sets must be equal, estimates
+   within the tolerances below, the fitted model within RTOL_MODEL.
 4. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, with timings of the kernel, the plain
    version and a PyTorch library yardstick computing the same function
@@ -44,7 +62,13 @@ Phases; each one that fails exits non-zero:
    8192 x 4, and the whole relation, 2^22 x 4), run twice to show
    bitwise repeatability, and timed by CUDA events and by the profiler.
    ``scatter_merge_parts`` at the shapes of the partitioned retraction's
-   view merge. Then steady-state repeats of the propensity path (cold and
+   view merge. ``knn_topk`` bit for bit against its plain version on
+   8,192 queries of the 2^17-row sample against all its controls, at k = 1
+   and k = 8, and timed there and at the path's 2^17 x 2^17;
+   ``greedy_sweep`` bit for bit on the sample's and the path's edges and
+   on the path's rows at a wide caliper; both rows' ``max_abs_err`` are
+   the largest |kernel - plain| those comparisons measured.
+   Then steady-state repeats of the propensity path (cold and
    warm fits over the reservoir, ``propensity_scores``), and the main
    path's stream six times more, in turns on the same card: replicated
    without and with the reservoir, partitioned, replicated, partitioned,
@@ -102,9 +126,35 @@ PROPENSITY = ("thunder", ("traffic", "w_precipm", "w_wspdm"))
 # the partition count a 4-card mesh would hold; on one card it gives the
 # partitioned merge kernel P > 1
 N_PARTS = 4
-# the kernels of each layout's path
-PARTITIONED_ONLY = ("scatter_merge_parts",)
-REPLICATED_ONLY = ("scatter_merge",)
+# the kernels each path must launch; any other kernel launched on a path
+# fails it
+PATH_KERNELS = {
+    "replicated": ("cem_keys", "segment_sums", "scatter_merge", "chunk_sums",
+                   "logistic_newton_terms"),
+    "partitioned": ("cem_keys", "segment_sums", "scatter_merge_parts",
+                    "chunk_sums", "logistic_newton_terms"),
+    "offline": ("cem_keys", "segment_sums", "chunk_sums",
+                "logistic_newton_terms", "knn_topk", "greedy_sweep"),
+}
+# The offline path: the methods of the paper's Table 3
+# (benchmarks/bench_quality.py), treatment snow, on the main path's joined
+# relation; the quadratic Mahalanobis matching on its first 2^17 rows (a
+# random sample: the generator draws flights in random order), the
+# card-against-CPU comparison of that part on its first 2^14 rows, and the
+# k-NN kernel against its plain version on 8,192 queries of the 2^17.
+OFFLINE_T = "snow"
+OFFLINE_Y = "dep_delay"
+PS_FEATURES = ("traffic", "w_season", "w_tempm", "w_wspdm", "w_precipm")
+BALANCE_COVS = ("w_visim", "w_wspdm", "traffic", "carrier_traffic")
+EM_COVS = {"airport": 16, "carrier": 16}
+PS_CALIPER = 0.001
+MAHALANOBIS_CALIPER = 0.5
+MATCH_ROWS = 1 << 17
+CPU_MATCH_ROWS = 1 << 14
+KNN_SLAB = 8192
+# a caliper above every Mahalanobis distance of the sample (finite: at
+# 1.84e19 or more the reference takes unfilled slots as matches)
+WIDE_CALIPER = 1e6
 
 KERNEL_FILES = {
     "cem_keys": ("src/repro_torch/csrc/cem_keys.cu",
@@ -119,12 +169,27 @@ KERNEL_FILES = {
                    "src/repro/kernels/segment_stats.py:186"),
     "logistic_newton_terms": ("src/repro_torch/csrc/logistic_grad.cu",
                               "src/repro/kernels/logistic_grad.py:41"),
+    "knn_topk": ("src/repro_torch/csrc/knn_topk.cu",
+                 "src/repro/kernels/knn_topk.py:62"),
+    # not a TPU kernel: the lax.scan of greedy_nnmnr
+    "greedy_sweep": ("src/repro_torch/csrc/greedy_sweep.cu",
+                     "src/repro/core/matching.py:190"),
 }
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def check_launches(path: str, counts: dict) -> None:
+    """Every kernel of ``path`` launched, and no other kernel."""
+    missing = [k for k in PATH_KERNELS[path] if not counts[k]]
+    if missing:
+        fail(f"kernels never launched on the {path} path: {missing}")
+    stray = [k for k, v in counts.items() if v and k not in PATH_KERNELS[path]]
+    if stray:
+        fail(f"the {path} path launched {stray}: {counts}")
 
 
 def build_specs(CoarsenSpec):
@@ -787,6 +852,427 @@ def profile_window(torch, eng, batch, treatments) -> dict:
                      for k, us, c in rows[:15] if us > 0])
 
 
+# ----------------------------------------------------------- offline path
+def table3_specs(CoarsenSpec):
+    """The CEM specs of the paper's Table 3 (bench_quality.py:77-82)."""
+    return {
+        "airport": CoarsenSpec.categorical(16),
+        "traffic": CoarsenSpec.equal_width(0, 40, 8),
+        "w_tempm": CoarsenSpec.equal_width(-20, 40, 5),
+        "w_wspdm": CoarsenSpec.equal_width(0, 80, 5),
+    }
+
+
+class Clock:
+    """Host-clocked calls, each ended by a synchronise on the card."""
+
+    def __init__(self, torch, device):
+        self.sync = (torch.cuda.synchronize if device.type == "cuda"
+                     else (lambda: None))
+        self.ms = {}
+
+    def __call__(self, name, fn):
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        self.ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def offline_relation(torch, table, ps=None):
+    """The offline path's first part, on the whole relation and on the
+    table's device: CEM with the Table 3 specs and EM on airport and
+    carrier (each with ``estimate_ate`` and its variance), the difference
+    in means, the raw imbalance, ``propensity_scores``, NNMWR on the
+    propensity distance with its ATT, subclassification, and AWMD of the
+    Table 3 covariates. ``ps`` replaces the fitted scores downstream of
+    the fit (the CPU run gets the card's). Returns (results, clock)."""
+    from repro_torch.core import (CoarsenSpec, awmd, cem,
+                                  difference_in_means, estimate_ate,
+                                  exact_matching, nnmwr, nnmwr_att,
+                                  ps_distance_features, raw_imbalance,
+                                  subclassify)
+    from repro_torch.core.propensity import propensity_scores
+    clock = Clock(torch, table.device)
+    t, y, v = table[OFFLINE_T], table[OFFLINE_Y], table.valid
+    covs = {c: table[c] for c in BALANCE_COVS}
+    r = {}
+    for name, fn in (
+            ("cem", lambda: cem(table, OFFLINE_T, OFFLINE_Y,
+                                table3_specs(CoarsenSpec))),
+            ("em", lambda: exact_matching(table, OFFLINE_T, OFFLINE_Y,
+                                          EM_COVS))):
+        res = r[name] = clock(name, fn)
+        r[f"{name}_est"] = clock(f"{name}_estimate_ate", lambda: estimate_ate(
+            res.groups, y, t, res.table.valid))
+        r[f"{name}_awmd"] = clock(f"{name}_awmd", lambda: awmd(
+            res.groups, covs, t, res.table.valid))
+    r["dim"] = clock("difference_in_means",
+                     lambda: difference_in_means(y, t, v))
+    r["raw"] = clock("raw_imbalance", lambda: raw_imbalance(covs, t, v))
+    r["fitted_ps"], r["model"] = clock("propensity_scores", lambda: (
+        propensity_scores(table, OFFLINE_T, list(PS_FEATURES))))
+    ps = r["ps"] = r["fitted_ps"] if ps is None else ps
+    r["nnmwr_ps"] = clock("nnmwr_ps", lambda: nnmwr(
+        ps_distance_features(ps), t, v, k=1, caliper=PS_CALIPER,
+        engine="sorted1d"))
+    r["nnmwr_ps_att"] = clock("nnmwr_att", lambda: nnmwr_att(
+        y, r["nnmwr_ps"]))
+    sub = r["sub"] = clock("subclassify", lambda: subclassify(
+        table, OFFLINE_T, OFFLINE_Y, ps, n_subclasses=5, trim=(0.1, 0.9)))
+    r["sub_est"] = clock("sub_estimate_ate", lambda: estimate_ate(
+        sub.groups, y, t, sub.table.valid))
+    r["sub_awmd"] = clock("sub_awmd", lambda: awmd(
+        sub.groups, covs, t, sub.table.valid))
+    return r, clock
+
+
+def offline_matching(torch, table, ps, n_rows, U=None):
+    """The offline path's second part, on rows [0, n_rows): the
+    Mahalanobis rotation of the five propensity features, NNMWR (k = 1)
+    and NNMNR (k = 1, m = 8) on the quadratic engine, and NNMNR on the
+    propensity distance. ``U`` replaces the rotation (the comparison runs
+    get the card's rotated features). Returns (results, clock)."""
+    from repro_torch.core import (features, mahalanobis_transform, nnmnr,
+                                  nnmwr, ps_distance_features)
+    clock = Clock(torch, table.device)
+    rows = table.slice(0, n_rows)
+    t, v = rows[OFFLINE_T], rows.valid
+    if U is None:
+        U = clock("mahalanobis_transform", lambda: mahalanobis_transform(
+            features(rows, PS_FEATURES), v))
+    r = {"U": U}
+    r["nnmwr_mahalanobis"] = clock("nnmwr_mahalanobis", lambda: nnmwr(
+        U, t, v, k=1, caliper=MAHALANOBIS_CALIPER, engine="quadratic"))
+    r["nnmnr_mahalanobis"] = clock("nnmnr_mahalanobis", lambda: nnmnr(
+        U, t, v, k=1, caliper=MAHALANOBIS_CALIPER, m_candidates=8))
+    r["nnmnr_ps"] = clock("nnmnr_ps", lambda: nnmnr(
+        ps_distance_features(ps[:n_rows]), t, v, k=1, caliper=PS_CALIPER))
+    return r, clock
+
+
+def sample_extras(torch, table, U, n_rows) -> dict:
+    """Calls that make the card-against-CPU comparison of the sample
+    strict whatever the caliper leaves: the raw k-NN (d2, idx) at k = 8,
+    and NNMNR at a caliper that every candidate passes (WIDE_CALIPER)."""
+    from repro_torch.core import nnmnr
+    from repro_torch.kernels.knn_topk import knn_topk
+    rows = table.slice(0, n_rows)
+    t, v = rows[OFFLINE_T], rows.valid
+    c_valid = (~t.to(torch.bool) & v).contiguous()
+    d2, idx = knn_topk(U, U, c_valid, 8)
+    return dict(d2=d2, idx=idx, nnmnr_wide=nnmnr(
+        U, t, v, k=1, caliper=WIDE_CALIPER, m_candidates=8))
+
+
+def path_wide_nnmnr(torch, rows, U):
+    """NNMNR (k = 1, m = 8) on the path's rotated rows at WIDE_CALIPER:
+    edges on which the sweep takes a control for most treated rows. Run
+    after the path's launch counts are read; used only to hold the sweep
+    against its plain version."""
+    from repro_torch.core import nnmnr
+    return nnmnr(U, rows[OFFLINE_T], rows.valid, k=1, caliper=WIDE_CALIPER,
+                 m_candidates=8)
+
+
+def match_summary(torch, y, res) -> dict:
+    """Matched treated units, distinct matched controls and the ATT of a
+    k-NN match (the ATT formula of ``nnmwr_att`` over its pairs)."""
+    from repro_torch.core import nnmwr_att
+    return dict(treated=int(res.n_matched_treated()),
+                controls=int(torch.unique(res.idx[res.ok]).numel()),
+                att=float(nnmwr_att(y, res)))
+
+
+def estimate_summary(est) -> dict:
+    return {f: float(getattr(est, f)) for f in (
+        "ate", "att", "variance", "n_matched_treated", "n_matched_control",
+        "n_groups")}
+
+
+class Diff:
+    """Card results held against CPU results: exact fields must be equal
+    (floats bit for bit); tolerated fields within their rtol. Keeps the
+    largest relative difference and whether every field was bitwise."""
+
+    def __init__(self, torch, np):
+        self.torch, self.np = torch, np
+        self.max_rel, self.bitwise, self.n_exact = 0.0, True, 0
+
+    def exact(self, label, a, b):
+        a, b = self.np.asarray(a.cpu()), self.np.asarray(b.cpu())
+        if a.dtype.kind == "f":
+            a, b = a.view(self.np.uint32), b.view(self.np.uint32)
+        if a.shape != b.shape or not self.np.array_equal(a, b):
+            fail(f"offline: {label} differs between cuda and cpu")
+        self.n_exact += 1
+
+    def close(self, label, a, b, rtol):
+        a, b = float(a), float(b)
+        if not self.np.isfinite(a):
+            fail(f"offline: {label} is not finite ({a})")
+        rel = abs(a - b) / max(abs(b), 1e-6)
+        self.max_rel = max(self.max_rel, rel)
+        self.bitwise &= a == b
+        if rel > rtol:
+            fail(f"offline: {label} {a} vs {b} beyond rtol {rtol}")
+
+    def groups(self, label, g, c):
+        for f in ("keep", "n_treated", "n_control"):
+            self.exact(f"{label} {f}", getattr(g, f), getattr(c, f))
+        for f in ("sum_y_t", "sum_y_c"):
+            a, b = getattr(g, f).cpu(), getattr(c, f)
+            if not self.np.allclose(a, b, rtol=RTOL_SUMS, atol=1e-3):
+                fail(f"offline: {label} {f} beyond rtol {RTOL_SUMS}")
+            self.bitwise &= bool(self.torch.equal(a, b))
+
+    def estimate(self, label, g, c):
+        for f in ("n_matched_treated", "n_matched_control", "n_groups"):
+            if float(getattr(g, f)) != float(getattr(c, f)):
+                fail(f"offline: {label} {f} differs")
+        for f, tol in (("ate", RTOL_EST), ("att", RTOL_EST),
+                       ("variance", RTOL_VAR)):
+            self.close(f"{label} {f}", getattr(g, f), getattr(c, f), tol)
+
+    def match(self, label, g, c):
+        for f in ("idx", "dist", "ok", "treated_mask"):
+            self.exact(f"{label} {f}", getattr(g, f), getattr(c, f))
+
+
+def compare_offline(torch, np, g, c, mg, mc, xg, xc, y_g, y_c) -> dict:
+    """The offline path on the card against the port's CPU run: part 1
+    over the whole relation (the CPU given the card's scores), part 2 and
+    :func:`sample_extras` on the first CPU_MATCH_ROWS rows (both given the
+    card's rotation)."""
+    diff = Diff(torch, np)
+    diff.exact("sample knn d2", xg["d2"], xc["d2"])
+    diff.exact("sample knn idx", xg["idx"], xc["idx"])
+    diff.match("sample nnmnr (wide caliper)", xg["nnmnr_wide"],
+               xc["nnmnr_wide"])
+    for name in ("cem", "em", "sub"):
+        gr, cr = g[name], c[name]
+        diff.exact(f"{name} matched mask", gr.table.valid, cr.table.valid)
+        diff.exact(f"{name} subclass", gr.table["subclass"],
+                   cr.table["subclass"])
+        diff.groups(name, gr.groups, cr.groups)
+        diff.estimate(name, g[f"{name}_est"], c[f"{name}_est"])
+        for cov in BALANCE_COVS:
+            diff.close(f"{name} awmd {cov}", g[f"{name}_awmd"][cov],
+                       c[f"{name}_awmd"][cov], RTOL_EST)
+    for name in ("cem", "em"):
+        diff.exact(f"{name} key_hi", g[name].key_hi, c[name].key_hi)
+        diff.exact(f"{name} key_lo", g[name].key_lo, c[name].key_lo)
+    diff.close("difference_in_means", g["dim"], c["dim"], RTOL_EST)
+    for cov in BALANCE_COVS:
+        diff.close(f"raw imbalance {cov}", g["raw"][cov], c["raw"][cov],
+                   RTOL_EST)
+    diff.match("nnmwr_ps", g["nnmwr_ps"], c["nnmwr_ps"])
+    diff.close("nnmwr_ps att", g["nnmwr_ps_att"], c["nnmwr_ps_att"],
+               RTOL_EST)
+    model_rel = compare_models(np, "offline propensity_scores",
+                               host_model(g["model"]), host_model(c["model"]))
+    ps_diff = float((g["fitted_ps"].cpu() - c["fitted_ps"]).abs().max())
+    if ps_diff > RTOL_MODEL:
+        fail(f"offline propensity scores differ by {ps_diff}")
+    for name in ("nnmwr_mahalanobis", "nnmnr_mahalanobis", "nnmnr_ps"):
+        diff.match(f"{name} ({CPU_MATCH_ROWS} rows)", mg[name], mc[name])
+        diff.close(f"{name} att", match_summary(torch, y_g, mg[name])["att"],
+                   match_summary(torch, y_c, mc[name])["att"], RTOL_EST)
+    return dict(exact_fields=diff.n_exact, bitwise=diff.bitwise,
+                max_rel_estimate_diff=diff.max_rel, model_max_rel=model_rel,
+                scores_max_abs_diff=ps_diff, match_rows=CPU_MATCH_ROWS,
+                sample_matched=int(xg["nnmnr_wide"].ok.sum()),
+                sample_within_caliper=int(mg["nnmnr_mahalanobis"].ok.sum()))
+
+
+def knn_kernel_check(torch, U, c_valid, counts) -> dict:
+    """``knn_topk`` against its plain version on the card, bit for bit, on
+    the first KNN_SLAB rows of the rotated sample against all its rows as
+    controls, at k = 1 and k = 8; timed there beside the plain version and
+    ``torch.cdist(Q, C).topk(k)`` (two library calls, another tie order: a
+    yardstick only), and at the path's shape (every row a query)."""
+    from repro_torch.kernels import knn_topk as tk
+    C = U.contiguous()
+    Q = C[:KNN_SLAB].contiguous()
+    cv = c_valid.contiguous()
+    err, idx_differ, big_differ, filled = 0.0, 0, 0, 0
+    for k in (1, 8):
+        kd, ki = tk.knn_topk(Q, C, cv, k)
+        pd, pi = tk.knn_topk_plain(Q, C, cv, k)
+        # |kernel - plain| over the slots that both fill (d2 below BIG);
+        # slots that only one fills, and differing indices, counted apart
+        kf, pf = kd < tk.BIG, pd < tk.BIG
+        both = kf & pf
+        filled += int(both.sum())
+        if bool(both.any()):
+            err = max(err, float((kd[both].double() - pd[both].double())
+                                 .abs().max()))
+        big_differ += int((kf != pf).sum())
+        idx_differ += int((ki != pi).sum())
+        if not (torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+                and torch.equal(ki, pi)):
+            fail(f"knn_topk differs from its plain version at k={k} "
+                 f"(max |d2 diff| {err}, {idx_differ} indices, "
+                 f"{big_differ} BIG slots)")
+    nq, d = Q.shape
+    nc = C.shape[0]
+    k = 8
+
+    def bound(n_q):
+        # inputs read once, (d2, idx) written once; 2d + 3 f32 operations
+        # per (query, valid control) pair: the dot product, the norms'
+        # sum, the subtraction and the clamp
+        n_valid = int(cv.sum())
+        return bound_ms((n_q + nc) * d * 4 + nc + n_q * k * 12,
+                        n_q * n_valid * (2 * d + 3))
+
+    b, by = bound(nq)
+    path_b, _ = bound(nc)
+    src, rep = KERNEL_FILES["knn_topk"]
+    return dict(
+        name="knn_topk", route="cuda", source=src, replaces=rep,
+        launches=counts["knn_topk"], max_abs_err=err,
+        ms=timed(torch, lambda: tk.knn_topk(Q, C, cv, k), 10),
+        plain_ms=timed(torch, lambda: tk.knn_topk_plain(Q, C, cv, k), 2,
+                       warmup=1),
+        bound_ms=b, bound_us=b * 1e3, bound_by=by,
+        library_ms=timed(torch, lambda: torch.cdist(Q, C).topk(
+            k, dim=1, largest=False), 5, warmup=1),
+        library="torch.cdist(Q, C).topk(8, largest=False): two library "
+                "calls, another tie order",
+        shapes=dict(
+            Q=[nq, d], C=[nc, d], k=k, valid_controls=int(cv.sum()),
+            compared=dict(k=[1, 8], filled_slots=filled,
+                          indices_differing=idx_differ,
+                          big_slots_differing=big_differ),
+            path_ms={f"k{kk}": timed(torch, lambda: tk.knn_topk(
+                C, C, cv, kk), 2, warmup=1) for kk in (1, 8)},
+            path_bound_ms=path_b,
+            note="ms, plain_ms, bound_ms and library_ms are the "
+                 f"{nq} x {nc} slab at k = 8; path_ms the path's "
+                 f"{nc} x {nc} calls (NNMWR k = 1, NNMNR's candidates "
+                 "k = 8)"))
+
+
+def sweep_edges(torch, res):
+    """The sorted candidate edges ``greedy_nnmnr`` swept for an NNMNR
+    result (its with-replacement ``ok`` is ``dist < BIG`` on treated
+    rows)."""
+    from repro_torch.kernels.knn_topk import BIG
+    ok = (res.dist < BIG) & res.treated_mask[:, None]
+    d = torch.where(ok, res.dist, BIG).reshape(-1)
+    n, m = res.idx.shape
+    order = torch.sort(d, stable=True).indices
+    t = torch.arange(n, device=d.device).repeat_interleave(m)
+    return (d[order].contiguous(), res.idx.reshape(-1)[order].contiguous(),
+            t[order].contiguous(), n)
+
+
+def sweep_kernel_check(torch, small, full, wide, counts) -> dict:
+    """``greedy_sweep`` against its plain version on the card, bit for
+    bit, on the CPU_MATCH_ROWS sample's edges (its wide-caliper NNMNR's),
+    on the path's (the 2^17-row Mahalanobis NNMNR's, caliper 0.5) and on
+    the same rows' edges at WIDE_CALIPER, where most treated rows take a
+    control; timed on the path's and on the wide ones. No library call
+    computes it."""
+    from repro_torch.kernels import greedy_sweep as gs
+    err, differ, taken = 0.0, {}, {}
+    for label, res in (("sample", small), ("path", full),
+                       ("path_wide", wide)):
+        args = sweep_edges(torch, res)
+        kf = gs.greedy_sweep(*args, 1)
+        pf = gs.greedy_sweep_plain(*args, 1)
+        diff = (kf.to(torch.int32) - pf.to(torch.int32)).abs()
+        differ[label] = int(diff.sum())
+        taken[label] = int(kf.sum())
+        if diff.numel():
+            err = max(err, float(diff.max()))
+        if not torch.equal(kf, pf):
+            fail(f"greedy_sweep differs from its plain version ({label}: "
+                 f"{differ[label]} flags)")
+    wd, wc, wt, wn = sweep_edges(torch, wide)
+    d, c, t, n = sweep_edges(torch, full)
+    e = d.shape[0]
+    # edges read once (f32 distance, two int64 indices), one byte written
+    # per edge; a few integer operations per edge
+    b, by = bound_ms(e * 21, e * 4)
+    src, rep = KERNEL_FILES["greedy_sweep"]
+    return dict(
+        name="greedy_sweep", route="cuda", source=src, replaces=rep,
+        launches=counts["greedy_sweep"], max_abs_err=err,
+        ms=timed(torch, lambda: gs.greedy_sweep(d, c, t, n, 1), 3,
+                 warmup=1),
+        plain_ms=timed(torch, lambda: gs.greedy_sweep_plain(d, c, t, n, 1),
+                       1, warmup=0),
+        bound_ms=b, bound_us=b * 1e3, bound_by=by, library_ms=None,
+        shapes=dict(
+            edges=e, n_rows=n, taken=taken, flags_differing=differ,
+            wide_ms=timed(torch, lambda: gs.greedy_sweep(wd, wc, wt, wn, 1),
+                          3, warmup=1),
+            wide_caliper=WIDE_CALIPER, tpu_kernel=False,
+            note="ms and plain_ms are the path's edges (caliper "
+                 f"{MAHALANOBIS_CALIPER}); wide_ms the same rows' edges "
+                 f"at caliper {WIDE_CALIPER}; max_abs_err the largest "
+                 "|kernel - plain| over all three sets' flags"))
+
+
+def run_offline(torch, np, joined, true_sate):
+    """The offline path on the card (launch counters set to 0 just before
+    and read just after it), the same calls on the CPU, and the two new
+    kernels against their plain versions. Prints the ``offline`` line and
+    returns the two kernel rows."""
+    from repro_torch.kernels import build
+    build.reset_launches()
+    g, g_clock = offline_relation(torch, joined)
+    mg, m_clock = offline_matching(torch, joined, g["ps"], MATCH_ROWS)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    check_launches("offline", counts)
+    t0 = time.perf_counter()
+    cpu = joined.to("cpu")
+    c, c_clock = offline_relation(torch, cpu, ps=g["ps"].cpu())
+    U_s = mg["U"][:CPU_MATCH_ROWS].contiguous()
+    mg_s, _ = offline_matching(torch, joined, g["ps"], CPU_MATCH_ROWS, U=U_s)
+    mc_s, _ = offline_matching(torch, cpu, g["ps"].cpu(), CPU_MATCH_ROWS,
+                               U=U_s.cpu())
+    xg = sample_extras(torch, joined, U_s, CPU_MATCH_ROWS)
+    xc = sample_extras(torch, cpu, U_s.cpu(), CPU_MATCH_ROWS)
+    cpu_s = time.perf_counter() - t0
+    y = joined[OFFLINE_Y]
+    vs_cpu = compare_offline(torch, np, g, c, mg_s, mc_s, xg, xc,
+                             y[:CPU_MATCH_ROWS],
+                             cpu[OFFLINE_Y][:CPU_MATCH_ROWS])
+    rows = joined.slice(0, MATCH_ROWS)
+    c_valid = ~rows[OFFLINE_T].to(torch.bool) & rows.valid
+    knn_row = knn_kernel_check(torch, mg["U"], c_valid, counts)
+    wide = path_wide_nnmnr(torch, rows, mg["U"])
+    sweep_row = sweep_kernel_check(torch, xg["nnmnr_wide"],
+                                   mg["nnmnr_mahalanobis"], wide, counts)
+    y_m = y[:MATCH_ROWS]
+    methods = {name: dict(estimate_summary(g[f"{name}_est"]),
+                          awmd={k: float(v) for k, v in
+                                g[f"{name}_awmd"].items()})
+               for name in ("cem", "em", "sub")}
+    methods["nnmwr_ps"] = match_summary(torch, y, g["nnmwr_ps"])
+    for name in ("nnmwr_mahalanobis", "nnmnr_mahalanobis", "nnmnr_ps"):
+        methods[name] = dict(match_summary(torch, y_m, mg[name]),
+                             rows=MATCH_ROWS)
+    print(json.dumps({"offline": {
+        "device": torch.cuda.get_device_name(0),
+        "treatment": OFFLINE_T, "rows": joined.nrows,
+        "match_rows": MATCH_ROWS, "methods": methods,
+        "difference_in_means": float(g["dim"]),
+        "raw_imbalance": {k: float(v) for k, v in g["raw"].items()},
+        "true_sate": true_sate[OFFLINE_T],
+        "propensity_model": host_model(g["model"]),
+        "ms": dict(g_clock.ms, **m_clock.ms),
+        "cpu_ms": c_clock.ms, "cpu_pass_s": cpu_s,
+        "launches": counts, "cuda_vs_cpu": vs_cpu}}, default=lambda a: (
+            a.tolist())))
+    return [knn_row, sweep_row]
+
+
 def main() -> None:
     started = time.perf_counter()
     import torch
@@ -841,10 +1327,7 @@ def main() -> None:
                                              joined)
     torch.cuda.synchronize()
     counts = build.launch_counts()
-    missing = [k for k, v in counts.items()
-               if v == 0 and k not in PARTITIONED_ONLY]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+    check_launches("replicated", counts)
     t0 = time.perf_counter()
     cpu_eng, cpu_est, cpu_ingest_ms, _, cpu_models, _ = run_stream(
         torch, OnlineEngine, specs, treatments,
@@ -903,13 +1386,7 @@ def main() -> None:
     torch.cuda.synchronize()
     part_counts = build.launch_counts()
     part_reads = part_eng.host_reads
-    missing = [k for k, v in part_counts.items()
-               if v == 0 and k not in REPLICATED_ONLY]
-    if missing:
-        fail(f"kernels never launched on the partitioned path: {missing}")
-    if any(part_counts[k] for k in REPLICATED_ONLY):
-        fail(f"the partitioned path launched {REPLICATED_ONLY}: "
-             f"{part_counts}")
+    check_launches("partitioned", part_counts)
     layouts = compare_layouts(torch, np,
                               (part_eng, part_est, part_models),
                               (gpu_eng, gpu_est, gpu_models), batches[5],
@@ -928,11 +1405,15 @@ def main() -> None:
         "launches": part_counts, "state": part_eng.stats(),
         "vs_replicated": layouts}}))
 
+    # phase 3, offline: the paper's Table 3 methods on the same relation
+    offline_rows = run_offline(torch, np, joined, data.true_sate)
+
     # phase 4: every kernel against its plain version, timed
     kernels, pseudo = kernel_checks(torch, np, gpu_eng, batches[1], counts)
     kernels.insert(3, parts_kernel_check(torch, part_eng, batches[0],
                                          part_counts))
     kernels.append(newton_checks(torch, gpu_eng, joined, gpu_full, counts))
+    kernels += offline_rows
     # the same stream in turns on this card: replicated with and without
     # the reservoir (the reference's default and its reservoir_size=0
     # configuration) and partitioned, interleaved with the default:

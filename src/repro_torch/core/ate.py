@@ -1,5 +1,5 @@
-"""Average-treatment-effect estimation from decomposable group stats
-(paper Eq. 1 / Eq. 4) — counterpart of :mod:`repro.core.ate`.
+"""Average-treatment-effect estimation (paper Eq. 1 / Eq. 4) — counterpart
+of :mod:`repro.core.ate`.
 
   tau_ATE = E_b[ E[Y|T=1, b] - E[Y|T=0, b] ]        (Eq. 4)
 
@@ -9,7 +9,9 @@ expression by expression; the cross-group reductions go through
 ``sum_fn``, which here reduces an (N, S) matrix of stacked vectors in ONE
 call — the online query passes the canonical chunked-sum kernel
 (:func:`repro_torch.kernels.segment_stats.chunked_sums`), two launches per
-estimate (the second stage needs the first stage's total).
+estimate (the second stage needs the first stage's total). The offline
+estimators below reduce through the same kernel, so their answers on the
+card and on the CPU are the same sums in the same order.
 """
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from repro_torch.core import groupby
+from repro_torch.core.cem import CEMGroups
+from repro_torch.kernels.segment_stats import chunked_sums
 
 SumFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -72,3 +78,53 @@ def estimate_ate_from_stats(keep: torch.Tensor, n_treated: torch.Tensor,
     return ATEEstimate(ate=ate, att=att, n_matched_treated=first[1],
                        n_matched_control=first[2],
                        n_groups=keep.sum(dtype=torch.int32), variance=var)
+
+
+def estimate_ate(groups: CEMGroups, y: torch.Tensor = None,
+                 treatment: torch.Tensor = None,
+                 matched_valid: torch.Tensor = None) -> ATEEstimate:
+    """ATE/ATT from group stats. If (y, treatment, matched_valid) are
+    given, the Neyman within-group variance is included (else 0): the
+    per-arm second moments are summed per group by the segment-sum kernel
+    over all N group ids. Returns 0-d tensors on the groups' device."""
+    yy_t = yy_c = None
+    if y is not None:
+        w = matched_valid.to(torch.float32)
+        t = treatment.to(torch.float32) * w
+        c = (1.0 - treatment.to(torch.float32)) * w
+        yf = y.to(torch.float32)
+        g = groups.grouping
+        yy = groupby.segment_sums(g, torch.stack([t * yf * yf, c * yf * yf],
+                                                 dim=1), g.nrows)
+        yy_t, yy_c = yy[:, 0], yy[:, 1]
+    return estimate_ate_from_stats(groups.keep, groups.n_treated,
+                                   groups.n_control, groups.sum_y_t,
+                                   groups.sum_y_c, yy_t, yy_c,
+                                   sum_fn=chunked_sums)
+
+
+def cem_weights(groups: CEMGroups, treatment: torch.Tensor,
+                matched_valid: torch.Tensor) -> torch.Tensor:
+    """Per-unit CEM weights (Iacus-King-Porro): treated units weight 1;
+    control units in group b weight (n_t_b / n_c_b) * (N_c / N_t)."""
+    g = groups.grouping
+    nt_rows = groupby.broadcast_to_rows(g, groups.n_treated)
+    nc_rows = groupby.broadcast_to_rows(g, groups.n_control)
+    n_t, n_c = groups.matched_counts()
+    w_control = ((nt_rows / torch.clamp(nc_rows, min=1e-9))
+                 * (n_c / torch.clamp(n_t, min=1e-9)))
+    w = torch.where(treatment.to(torch.float32) > 0, 1.0, w_control)
+    return torch.where(matched_valid, w, 0.0)
+
+
+def difference_in_means(y: torch.Tensor, treatment: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """Naive (confounded) estimator E[Y|T=1] - E[Y|T=0] — Eq. 2 applied
+    without balancing; the paper's cautionary baseline."""
+    w = valid.to(torch.float32)
+    t = treatment.to(torch.float32) * w
+    c = (1.0 - treatment.to(torch.float32)) * w
+    yf = y.to(torch.float32)
+    s = chunked_sums(torch.stack([t * yf, t, c * yf, c], dim=1))
+    return s[0] / torch.clamp(s[1], min=1e-9) - s[2] / torch.clamp(s[3],
+                                                                   min=1e-9)

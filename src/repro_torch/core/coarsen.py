@@ -9,7 +9,7 @@ into the port only when the two fingerprints match.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -74,3 +74,9 @@ def coarsen(x: torch.Tensor, spec: CoarsenSpec) -> torch.Tensor:
     return torch.searchsorted(cp, x.to(torch.float32).contiguous(),
                               right=True)
 
+
+def coarsen_columns(columns: Mapping[str, torch.Tensor],
+                    specs: Mapping[str, CoarsenSpec]
+                    ) -> Dict[str, torch.Tensor]:
+    """Coarsen every spec'd column; returns {name: bucket ids}."""
+    return {name: coarsen(columns[name], spec) for name, spec in specs.items()}

@@ -45,6 +45,10 @@ class Grouping:
         inv[self.perm] = torch.arange(self.nrows, device=self.perm.device)
         return inv
 
+    def row_group(self) -> torch.Tensor:
+        """(N,) int64: original row -> group id."""
+        return self.seg_ids[self.inv_perm()]
+
 
 def group_by_key(hi: torch.Tensor, lo: torch.Tensor) -> Grouping:
     """Group rows by (hi, lo) key. Invalid rows carry the all-ones marker
@@ -81,6 +85,31 @@ def segment_sums(g: Grouping, values: torch.Tensor,
     pre-mask the stats."""
     return segment_stats.segment_sums(values.contiguous(), g.perm,
                                       g.seg_ids, num_segments)
+
+
+def group_minmax(g: Grouping, col: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group (min, max) over N group ids — the paper's ``min(T) OVER
+    w / max(T) OVER w``. Group ids without rows hold the reduction's
+    identity (the dtype's largest value for the min, its smallest for the
+    max), as ``jax.ops.segment_min`` / ``segment_max`` leave them."""
+    sortd = col[g.perm]
+    if sortd.dtype.is_floating_point:
+        hi, lo = float("inf"), float("-inf")
+    else:
+        info = torch.iinfo(sortd.dtype)
+        hi, lo = info.max, info.min
+    mn = torch.full((g.nrows,), hi, dtype=sortd.dtype, device=sortd.device)
+    mx = torch.full((g.nrows,), lo, dtype=sortd.dtype, device=sortd.device)
+    mn = mn.scatter_reduce(0, g.seg_ids, sortd, "amin", include_self=True)
+    mx = mx.scatter_reduce(0, g.seg_ids, sortd, "amax", include_self=True)
+    return mn, mx
+
+
+def broadcast_to_rows(g: Grouping, group_vals: torch.Tensor) -> torch.Tensor:
+    """Group-level values -> per-row values (original row order): the SQL
+    analogue of selecting a window aggregate alongside each row."""
+    return group_vals[g.seg_ids][g.inv_perm()]
 
 
 def scatter_add_stats(stats: torch.Tensor, pos: torch.Tensor,

@@ -60,10 +60,22 @@ class Table:
     def names(self) -> Iterator[str]:
         return iter(sorted(self.columns))
 
+    def count(self) -> torch.Tensor:
+        """Number of valid rows (a 0-d int64 tensor on the table's device)."""
+        return self.valid.sum()
+
     # -- relational-ish ops ------------------------------------------------
     def filter(self, mask: torch.Tensor) -> "Table":
         """WHERE: rows failing ``mask`` become invalid. Shape unchanged."""
         return Table(self.columns, self.valid & mask.to(torch.bool))
+
+    def with_columns(self, new: Mapping[str, torch.Tensor]) -> "Table":
+        cols = dict(self.columns)
+        cols.update(new)
+        return Table(cols, self.valid)
+
+    def select(self, names) -> "Table":
+        return Table({n: self.columns[n] for n in names}, self.valid)
 
     def slice(self, start: int, stop: int) -> "Table":
         """Rows ``[start, stop)`` as views (no copy)."""

@@ -157,6 +157,12 @@ KERNELS: Dict[str, Kernel] = {
         "logistic_newton_terms", "logistic_grad.cu",
         "logistic_newton_partials_launch",
         [_P, _P, _P, _P, _P, _I64, _I32, _I64, _P]),
+    "knn_topk": Kernel(
+        "knn_topk", "knn_topk.cu", "knn_topk_launch",
+        [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P]),
+    "greedy_sweep": Kernel(
+        "greedy_sweep", "greedy_sweep.cu", "greedy_sweep_launch",
+        [_P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P]),
 }
 
 

@@ -225,9 +225,11 @@ def _case_engine_on_cuda_equals_engine_on_cpu():
             for f in ("ate", "att", "variance", "n_groups",
                       "n_matched_treated", "n_matched_control"):
                 assert getattr(eg, f) == getattr(ec, f), (t, sub, f)
-    # every kernel of the replicated path (the partitioned merge is not one)
+    # every kernel of the replicated path (the partitioned merge and the
+    # matching kernels are not among them)
     assert all(v > 0 for k, v in build.launch_counts().items()
-               if k != "scatter_merge_parts")
+               if k not in ("scatter_merge_parts", "knn_topk",
+                            "greedy_sweep"))
 
 
 def _case_scatter_merge_parts_matches_plain(n_parts, b):
@@ -393,3 +395,80 @@ def test_partitioned_merge_and_engine_on_the_card_match_plain(cuda):
     for n_parts, b in ((1, 300), (3, 300), (4, 300), (4, 5000)):
         _case_scatter_merge_parts_matches_plain(n_parts, b)
     _case_partitioned_engine_on_cuda_equals_engine_on_cpu()
+
+
+def _case_knn_topk_matches_plain(nq, nc, d, k, share, integer):
+    """The k-NN kernel against its plain version: ragged query blocks and
+    control tiles, k = 1 / 8 / 16 and widths on both register paths,
+    exact ties (integer features), all controls invalid and fewer valid
+    controls than k — (d2, idx) bit for bit, one launch."""
+    import torch
+    from repro_torch.kernels import knn_topk as tk
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(nq * 7 + nc + d + k)
+    if integer:
+        Q = rng.integers(-3, 4, (nq, d)).astype(np.float32)
+        C = rng.integers(-3, 4, (nc, d)).astype(np.float32)
+    else:
+        Q = rng.normal(0, 2, (nq, d)).astype(np.float32)
+        C = rng.normal(0, 2, (nc, d)).astype(np.float32)
+    Q, C = _t(Q, dev), _t(C, dev)
+    v = _t(rng.random(nc) < share, dev)
+    before = tk.KERNEL.launches
+    kd, ki = tk.knn_topk(Q, C, v, k)
+    assert tk.KERNEL.launches == before + 1
+    pd, pi = tk.knn_topk_plain(Q, C, v, k)
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    assert torch.equal(ki, pi)
+    n_valid = int(v.sum())
+    if n_valid < k:
+        assert bool((ki[:, n_valid:] == -1).all())
+
+
+def _case_greedy_sweep_matches_plain(n_edges, n_rows, k, quantum):
+    """The sweep kernel against its plain version on sorted edges with
+    BIG distances, out-of-range indices (clipped) and, with ``quantum``,
+    equal distances — the taken flags equal, one launch."""
+    import torch
+    from repro_torch.kernels import greedy_sweep as gs
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n_edges + k)
+    d = rng.random(n_edges).astype(np.float32)
+    if quantum:
+        d = (np.round(d / quantum) * quantum).astype(np.float32)
+    d[rng.random(n_edges) < 0.2] = np.float32(3.4e38)
+    d = np.sort(d, kind="stable")
+    c = rng.integers(-2, n_rows + 2, n_edges).astype(np.int64)
+    t = rng.integers(0, n_rows, n_edges).astype(np.int64)
+    args = (_t(d, dev), _t(c, dev), _t(t, dev), n_rows, k)
+    before = gs.KERNEL.launches
+    got = gs.greedy_sweep(*args)
+    assert gs.KERNEL.launches == before + 1
+    assert torch.equal(got, gs.greedy_sweep_plain(*args))
+
+
+def _case_matching_wrappers_refuse():
+    import torch
+    from repro_torch.kernels import knn_topk as tk
+    dev = torch.device("cuda")
+    Q = torch.zeros((4, 3), device=dev)
+    v = torch.ones((4,), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="limit"):
+        tk.knn_topk(Q, Q, v, tk.MAX_K + 1)
+    with pytest.raises(ValueError):
+        tk.knn_topk(Q, Q, v.cpu(), 2)
+    with pytest.raises(TypeError):
+        tk.knn_topk(Q, Q, v.to(torch.int32), 2)
+
+
+def test_matching_kernels_on_the_card_match_plain(cuda):
+    """The k-NN and sweep kernels against their plain versions, and the
+    wrappers' guards."""
+    for case in ((300, 1000, 5, 1, 0.5, False), (129, 4099, 5, 8, 0.3, True),
+                 (1000, 777, 3, 16, 0.7, True), (64, 300, 64, 8, 0.5, False),
+                 (257, 513, 9, 5, 0.0, False), (200, 300, 2, 16, 0.02, True)):
+        _case_knn_topk_matches_plain(*case)
+    for case in ((50000, 3000, 1, 0.0), (20000, 500, 2, 0.01),
+                 (1, 1, 1, 0.0)):
+        _case_greedy_sweep_matches_plain(*case)
+    _case_matching_wrappers_refuse()

@@ -30,12 +30,24 @@ from repro_torch.kernels.segment_stats import scatter_merge_parts
 from repro_torch.data import flightgen
 from repro_torch.data.join import fk_join
 from repro_torch.kernels import build
+# the offline path's modules, as chip_smoke.run_offline imports them
+from repro_torch.core import (awmd, cem, difference_in_means, estimate_ate,
+                              exact_matching, features, mahalanobis_transform,
+                              nnmnr, nnmwr, nnmwr_att, ps_distance_features,
+                              raw_imbalance, subclassify)
+from repro_torch.kernels.knn_topk import knn_topk, knn_topk_plain
+from repro_torch.kernels.greedy_sweep import greedy_sweep, greedy_sweep_plain
+for mod in ("matching", "distance", "balance", "subclassification", "cem",
+            "ate"):
+    assert "repro_torch.core." + mod in names, mod
+for mod in ("knn_topk", "greedy_sweep"):
+    assert "repro_torch.kernels." + mod in names, mod
 leaks = sorted(m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
                or m == "repro" or m.startswith("repro."))
 print(len(names), leaks)
 assert not leaks, leaks
-assert len(names) >= 15, names
+assert len(names) >= 21, names
 """
 
 
