@@ -57,14 +57,23 @@ Phases; each one that fails exits non-zero:
 4. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, with timings of the kernel, the plain
    version and a PyTorch library yardstick computing the same function
-   (where there is one), and the least time the card could take;
+   (where there is one), and the least time the card could take; the
+   tree kernels (``segment_sums``, ``scatter_merge``,
+   ``scatter_merge_parts``) bit for bit as integer views (-0.0 is not
+   +0.0), with their device time by kernel from the profiler beside the
+   event-timed ms, ``segment_sums`` also at the shape of an uncached
+   query's canonical re-sort and at the offline path's (the subclass
+   groups over the 2^22 rows, and that call's longest run alone), and the
+   trailing pseudo-group of invalid rows alone;
    ``logistic_newton_terms`` at both of its shapes (the reservoir,
    8192 x 4, and the whole relation, 2^22 x 4), run twice to show
    bitwise repeatability, and timed by CUDA events and by the profiler.
    ``scatter_merge_parts`` at the shapes of the partitioned retraction's
    view merge. ``knn_topk`` bit for bit against its plain version on
    8,192 queries of the 2^17-row sample against all its controls, at k = 1
-   and k = 8, and timed there and at the path's 2^17 x 2^17;
+   and k = 8, and timed there and at the path's 2^17 x 2^17 (with
+   ``torch.cdist(...).topk(k)`` over the path's 16 slabs of 8,192 queries,
+   summed, as its yardstick);
    ``greedy_sweep`` bit for bit on the sample's and the path's edges and
    on the path's rows at a wide caliper; both rows' ``max_abs_err`` are
    the largest |kernel - plain| those comparisons measured.
@@ -148,6 +157,7 @@ PS_FEATURES = ("traffic", "w_season", "w_tempm", "w_wspdm", "w_precipm")
 BALANCE_COVS = ("w_visim", "w_wspdm", "traffic", "carrier_traffic")
 EM_COVS = {"airport": 16, "carrier": 16}
 PS_CALIPER = 0.001
+SUBCLASS_TRIM = (0.1, 0.9)
 MAHALANOBIS_CALIPER = 0.5
 MATCH_ROWS = 1 << 17
 CPU_MATCH_ROWS = 1 << 14
@@ -241,6 +251,21 @@ def device_ms(torch, fn, reps: int = 20) -> dict:
             out[name] = out.get(name, 0.0) + \
                 e.self_device_time_total / 1e3 / reps
     return dict(total=sum(out.values()), by_kernel=out)
+
+
+def same_floats(torch, a, b) -> bool:
+    """Bit for bit (``torch.equal`` takes -0.0 for +0.0)."""
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def device_split(torch, fn) -> dict:
+    """``device_ms`` of ``fn`` as (total, by kernel), kernel names cut to
+    their first 40 characters."""
+    d = device_ms(torch, fn)
+    return dict(device_ms=d["total"],
+                device_by_kernel={k[:40]: v for k, v in
+                                  d["by_kernel"].items()})
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -541,7 +566,7 @@ def kernel_checks(torch, np, eng, batch, counts):
     k_out = ss.segment_sums(*sargs)
     p_out = ss.segment_sums_plain(*sargs)
     err = float((k_out - p_out).abs().max())
-    if not torch.equal(k_out, p_out):
+    if not same_floats(torch, k_out, p_out):
         fail(f"segment_sums differs from its plain version ({err})")
     # the library call adds every row, the invalid ones into row G
     seg_orig = g.seg_ids[g.inv_perm()]
@@ -552,14 +577,23 @@ def kernel_checks(torch, np, eng, batch, counts):
            timed(torch, lambda: ss.segment_sums_plain(*sargs), 5),
            timed(torch, lambda: zeros.index_add_(0, seg_orig, vals), 50),
            summed * (s * 4 + 8) + n * 8 + n_delta * s * 4, summed * s,
-           dict(values=[n, s], segments=n_delta, rows_summed=summed))
+           dict(values=[n, s], segments=n_delta, rows_summed=summed,
+                query=query_segment_sums(torch, eng, "thunder")))
+    out[-1].update(device_split(torch, lambda: ss.segment_sums(*sargs)))
+    out[-1]["library_device_ms"] = device_ms(
+        torch, lambda: zeros.index_add_(0, seg_orig, vals))["total"]
     # the trailing pseudo-group of invalid rows, alone: one long segment
     # (the query's masked rows form such a segment, and it is summed)
     inv_vals = vals[~valid].contiguous()
     inv_perm = torch.arange(n_inv, device=dev)
     inv_seg = torch.zeros((n_inv,), dtype=torch.int64, device=dev)
+    pargs = (inv_vals, inv_perm, inv_seg, 1)
+    if not same_floats(torch, ss.segment_sums(*pargs),
+                       ss.segment_sums_plain(*pargs)):
+        fail("segment_sums (the pseudo-group alone) differs")
     pseudo = dict(rows=n_inv, ms=timed(
-        torch, lambda: ss.segment_sums(inv_vals, inv_perm, inv_seg, 1), 20))
+        torch, lambda: ss.segment_sums(*pargs), 20),
+        **device_split(torch, lambda: ss.segment_sums(*pargs)))
 
     # scatter_merge: this batch's delta into the base view (fast path:
     # the batch is already ingested), and a rolled-up view delta whose
@@ -574,7 +608,7 @@ def kernel_checks(torch, np, eng, batch, counts):
     kt = ss.scatter_merge(base.stats.clone(), pos, d_stats)
     pt = ss.scatter_merge_plain(base.stats.clone(), pos, d_stats)
     err = float((kt - pt).abs().max())
-    if not torch.equal(kt, pt):
+    if not same_floats(torch, kt, pt):
         fail(f"scatter_merge differs from its plain version ({err})")
     t = "thunder"
     view = eng.views[t].cuboid
@@ -589,7 +623,7 @@ def kernel_checks(torch, np, eng, batch, counts):
     kv = ss.scatter_merge(view.stats.clone(), vpos, v_stats.contiguous())
     pv = ss.scatter_merge_plain(view.stats.clone(), vpos,
                                 v_stats.contiguous())
-    if not torch.equal(kv, pv):
+    if not same_floats(torch, kv, pv):
         fail("scatter_merge (view delta, duplicate positions) differs")
     err = max(err, float((kv - pv).abs().max()))
     # timed on the view delta: the main path's shape with a long run of
@@ -611,7 +645,13 @@ def kernel_checks(torch, np, eng, batch, counts):
                 base_delta=[pos.shape[0], s], base_table=list(
                     base.stats.shape),
                 base_delta_ms=timed(torch, lambda: ss.scatter_merge(
-                    base_table, pos, d_stats), 50)))
+                    base_table, pos, d_stats), 50),
+                base_delta_device_ms=device_ms(torch, lambda: ss.scatter_merge(
+                    base_table, pos, d_stats))["total"]))
+    out[-1].update(device_split(
+        torch, lambda: ss.scatter_merge(table, vpos, v_stats)))
+    out[-1]["library_device_ms"] = device_ms(
+        torch, lambda: lib_table.index_add_(0, vpos, v_stats))["total"]
 
     # chunk_sums: estimator stage 1 of a query on the thunder view
     cols5 = [cube_mod.stat_column(tn, k)
@@ -634,6 +674,73 @@ def kernel_checks(torch, np, eng, batch, counts):
            cn * cs * 4 + nb * cs * 4 + cs * 4, cn * cs,
            dict(values=[cn, cs], chunks=nb))
     return out, pseudo
+
+
+def query_segment_sums(torch, eng, treatment) -> dict:
+    """``segment_sums`` at the shape of one uncached ``ate()``: the
+    canonical re-sort of ``_estimate_from_roles`` over the view's C slots
+    for airport 0 (four of a step's five queries per treatment are
+    airport subpopulations), its C x 6 role stats with the masked slots'
+    run (zeros) summed too; bit for bit its plain version, timed by CUDA
+    events and by the profiler."""
+    from repro_torch.core import cube as cube_mod
+    from repro_torch.core import fused as fused_mod
+    from repro_torch.core import groupby
+    from repro_torch.core.keys import INVALID_HI, INVALID_LO
+    from repro_torch.kernels import segment_stats as ss
+    cub, keep = eng.views[treatment].cuboid, eng.views[treatment].keep
+    cols = [cube_mod.stat_column(eng._tnames, k)
+            for k in fused_mod.query_stat_names(treatment)]
+    m = fused_mod._query_mask(cub.key_hi, cub.key_lo, cub.group_valid, keep,
+                              cub.codec, (("airport", (0,)),))
+    g = groupby.group_by_key(torch.where(m, cub.key_hi, INVALID_HI),
+                             torch.where(m, cub.key_lo, INVALID_LO))
+    vals = torch.where(m[:, None], cub.stats[:, cols], 0.0).contiguous()
+    args = (vals, g.perm, g.seg_ids, g.nrows)
+    if not same_floats(torch, ss.segment_sums(*args),
+                       ss.segment_sums_plain(*args)):
+        fail("segment_sums (query shape) differs from its plain version")
+    return dict(values=list(vals.shape), masked_rows=int((~m).sum()),
+                ms=timed(torch, lambda: ss.segment_sums(*args), 50),
+                **device_split(torch, lambda: ss.segment_sums(*args)))
+
+
+def offline_segment_sums(torch, sub, table) -> dict:
+    """``segment_sums`` at the offline path's shapes: the subclass groups'
+    stat sums as ``cem_from_keys`` takes them (the 2^22 rows, four columns,
+    one segment id per row: five subclasses and the trimmed rows'
+    pseudo-group), and the call's longest run alone; bit for bit the
+    plain version, timed by CUDA events and the profiler."""
+    from repro_torch.kernels import segment_stats as ss
+    g = sub.groups.grouping
+    # the rows cem_from_keys sums: valid, propensity inside the trim
+    lo, hi = SUBCLASS_TRIM
+    w = (table.valid & (sub.ps >= lo) & (sub.ps <= hi)).to(torch.float32)
+    t = table[OFFLINE_T].to(torch.float32) * w
+    c = (1.0 - table[OFFLINE_T].to(torch.float32)) * w
+    y = table[OFFLINE_Y].to(torch.float32)
+    vals = torch.stack([t, c, t * y, c * y], dim=1).contiguous()
+    # the call's runs: the subclasses and the trimmed rows' pseudo-group
+    rows = torch.bincount(g.seg_ids)
+    n_run = int(rows.max())
+    run_args = (vals[:n_run].contiguous(),
+                torch.arange(n_run, device=vals.device),
+                torch.zeros((n_run,), dtype=torch.int64, device=vals.device),
+                1)
+    out = {}
+    for name, args in (("subclass_call", (vals, g.perm, g.seg_ids, g.nrows)),
+                       ("one_run", run_args)):
+        if not same_floats(torch, ss.segment_sums(*args),
+                           ss.segment_sums_plain(*args)):
+            fail(f"segment_sums (offline {name}) differs from its plain "
+                 "version")
+        out[name] = dict(
+            values=list(args[0].shape), segments=args[3],
+            ms=timed(torch, lambda: ss.segment_sums(*args), 10),
+            device_ms=device_ms(torch, lambda: ss.segment_sums(*args),
+                                reps=5)["total"])
+    out["run_rows"] = rows[rows > 0].tolist()
+    return out
 
 
 def parts_kernel_check(torch, eng, batch, counts) -> dict:
@@ -666,7 +773,7 @@ def parts_kernel_check(torch, eng, batch, counts) -> dict:
     kt = ss.scatter_merge_parts(view.stats.clone(), pos, vals)
     pt = ss.scatter_merge_parts_plain(view.stats.clone(), pos, vals)
     err = float((kt - pt).abs().max())
-    if not torch.equal(kt, pt):
+    if not same_floats(torch, kt, pt):
         fail(f"scatter_merge_parts differs from its plain version ({err})")
     p, c, s = view.stats.shape
     b = pos.shape[1]
@@ -684,8 +791,8 @@ def parts_kernel_check(torch, eng, batch, counts) -> dict:
         name="scatter_merge_parts", route="cuda", source=src, replaces=rep,
         launches=counts["scatter_merge_parts"], max_abs_err=err,
         ms=timed(torch, lambda: ss.scatter_merge_parts(table, pos, vals), 50),
-        device_ms=device_ms(
-            torch, lambda: ss.scatter_merge_parts(table, pos, vals))["total"],
+        **device_split(
+            torch, lambda: ss.scatter_merge_parts(table, pos, vals)),
         plain_ms=timed(torch, lambda: ss.scatter_merge_parts_plain(
             table, pos, vals), 5),
         bound_ms=bound, bound_us=bound * 1e3, bound_by=by,
@@ -920,7 +1027,7 @@ def offline_relation(torch, table, ps=None):
     r["nnmwr_ps_att"] = clock("nnmwr_att", lambda: nnmwr_att(
         y, r["nnmwr_ps"]))
     sub = r["sub"] = clock("subclassify", lambda: subclassify(
-        table, OFFLINE_T, OFFLINE_Y, ps, n_subclasses=5, trim=(0.1, 0.9)))
+        table, OFFLINE_T, OFFLINE_Y, ps, n_subclasses=5, trim=SUBCLASS_TRIM))
     r["sub_est"] = clock("sub_estimate_ate", lambda: estimate_ate(
         sub.groups, y, t, sub.table.valid))
     r["sub_awmd"] = clock("sub_awmd", lambda: awmd(
@@ -1148,11 +1255,18 @@ def knn_kernel_check(torch, U, c_valid, counts) -> dict:
                           big_slots_differing=big_differ),
             path_ms={f"k{kk}": timed(torch, lambda: tk.knn_topk(
                 C, C, cv, kk), 2, warmup=1) for kk in (1, 8)},
+            path_library_ms={f"k{kk}": timed(torch, lambda: [
+                torch.cdist(C[q:q + KNN_SLAB], C).topk(
+                    kk, dim=1, largest=False)
+                for q in range(0, nc, KNN_SLAB)], 1, warmup=1)
+                for kk in (1, 8)},
             path_bound_ms=path_b,
             note="ms, plain_ms, bound_ms and library_ms are the "
                  f"{nq} x {nc} slab at k = 8; path_ms the path's "
                  f"{nc} x {nc} calls (NNMWR k = 1, NNMNR's candidates "
-                 "k = 8)"))
+                 "k = 8); path_library_ms cdist + topk over the path's "
+                 f"{nc // KNN_SLAB} slabs of {KNN_SLAB} queries, summed "
+                 "(the whole distance matrix does not fit)"))
 
 
 def sweep_edges(torch, res):
@@ -1270,7 +1384,7 @@ def run_offline(torch, np, joined, true_sate):
         "cpu_ms": c_clock.ms, "cpu_pass_s": cpu_s,
         "launches": counts, "cuda_vs_cpu": vs_cpu}}, default=lambda a: (
             a.tolist())))
-    return [knn_row, sweep_row]
+    return [knn_row, sweep_row], offline_segment_sums(torch, g["sub"], joined)
 
 
 def main() -> None:
@@ -1406,10 +1520,12 @@ def main() -> None:
         "vs_replicated": layouts}}))
 
     # phase 3, offline: the paper's Table 3 methods on the same relation
-    offline_rows = run_offline(torch, np, joined, data.true_sate)
+    offline_rows, offline_sums = run_offline(torch, np, joined,
+                                             data.true_sate)
 
     # phase 4: every kernel against its plain version, timed
     kernels, pseudo = kernel_checks(torch, np, gpu_eng, batches[1], counts)
+    kernels[1]["shapes"]["offline"] = offline_sums
     kernels.insert(3, parts_kernel_check(torch, part_eng, batches[0],
                                          part_counts))
     kernels.append(newton_checks(torch, gpu_eng, joined, gpu_full, counts))

@@ -20,28 +20,24 @@
 // updates. Positions outside [0, C) are dropped.
 //
 // Bound on the H100: memory (per touched row: the table cells read and
-// written, plus the delta row and its position). Design: the tree's tiles
-// in parallel, then one thread per (run, column) folds the run's tile sums
-// and updates the cell, so the long run of invalid rows costs max(256,
-// rows / 256) steps on its thread, not rows.
+// written, plus the delta row and its position). Design (segment_tree.cuh):
+// a warp per 256-row window of the delta and group of four columns, its
+// rows' values and the one-tile runs' cells read in one batch of 16-byte
+// loads, the in-tile tree levels in registers; a run of one tile (every
+// unique position, and most runs) updates its cell right in that pass, and
+// the long run of invalid rows is folded over its tile sums by one warp.
+// Two device ops per call: the tile pass and the fold.
 #include "segment_tree.cuh"
 
-// starts (C,) int64 filled with -1 and tiles (B, S) f32 scratch come from
-// the caller.
+// scratch (ceil(B / 256) * (2 + S) int64) comes from the caller.
 extern "C" int scatter_merge_launch(void* table, const void* pos,
-                                    const void* vals, void* starts,
-                                    void* tiles, long long b, int s,
-                                    long long c, void* stream) {
+                                    const void* vals, void* scratch,
+                                    long long b, int s, long long c,
+                                    void* stream) {
   if (b == 0 || s == 0 || c == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t* pos_p = static_cast<const int64_t*>(pos);
-  int64_t* starts_p = static_cast<int64_t*>(starts);
-  float* tiles_p = static_cast<float*>(tiles);
-  cudaError_t err = run_tiles_launch(static_cast<const float*>(vals), nullptr,
-                                     pos_p, starts_p, tiles_p, b, s, c, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 256;
-  scatter_fold_kernel<<<repro_blocks(b * s, threads), threads, 0, st>>>(
-      static_cast<float*>(table), pos_p, starts_p, tiles_p, b, s, c);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(run_tree_launch<true>(
+      static_cast<const float*>(vals), nullptr,
+      static_cast<const int64_t*>(pos), static_cast<float*>(table),
+      static_cast<int64_t*>(scratch), b, s, c,
+      static_cast<cudaStream_t>(stream)));
 }

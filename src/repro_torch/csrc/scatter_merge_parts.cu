@@ -30,10 +30,11 @@
 // pos[p], vals[p]) would leave it.
 //
 // Bound on the H100: memory (per touched slot: the table cells read and
-// written; per row: its position and its delta stats). Design: as
-// scatter_merge.cu — tiles of 256 rows in parallel, then one thread per
-// (run, column) over the run's tile sums, so a partition's long padding run
-// costs max(256, rows / 256) steps on its thread, not rows.
+// written; per row: its position and its delta stats). Design: the slot
+// pass, then scatter_merge.cu's machinery (segment_tree.cuh) on the
+// flattened rows: a warp per 256-row window, one-tile runs merged in the
+// tile pass, a partition's long padding run folded over its tile sums.
+// Three device ops per call.
 #include "segment_tree.cuh"
 
 // slots[i] = p*c + pos[i] for row i = p*b + j, or -1 when pos[i] is outside
@@ -47,29 +48,24 @@ __global__ void part_slots_kernel(const int64_t* __restrict__ pos,
   slots[i] = (q >= 0 && q < c) ? (i / b) * c + q : -1;
 }
 
-// slots (P*B,) int64, starts (P*C,) int64 filled with -1 and tiles
-// (P*B, S) f32 scratch come from the caller.
+// slots (P*B,) int64 and scratch (ceil(P*B / 256) * (2 + S) int64) come
+// from the caller.
 extern "C" int scatter_merge_parts_launch(void* tables, const void* pos,
                                           const void* vals, void* slots,
-                                          void* starts, void* tiles,
-                                          long long p, long long b, int s,
-                                          long long c, void* stream) {
+                                          void* scratch, long long p,
+                                          long long b, int s, long long c,
+                                          void* stream) {
   if (p == 0 || b == 0 || s == 0 || c == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long n = p * b;
-  const long long g = p * c;
   int64_t* slots_p = static_cast<int64_t*>(slots);
-  int64_t* starts_p = static_cast<int64_t*>(starts);
-  float* tiles_p = static_cast<float*>(tiles);
   const int threads = 256;
   part_slots_kernel<<<repro_blocks(n, threads), threads, 0, st>>>(
       static_cast<const int64_t*>(pos), slots_p, n, b, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = run_tiles_launch(static_cast<const float*>(vals), nullptr, slots_p,
-                         starts_p, tiles_p, n, s, g, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_fold_kernel<<<repro_blocks(n * s, threads), threads, 0, st>>>(
-      static_cast<float*>(tables), slots_p, starts_p, tiles_p, n, s, g);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(run_tree_launch<true>(
+      static_cast<const float*>(vals), nullptr, slots_p,
+      static_cast<float*>(tables), static_cast<int64_t*>(scratch), n, s,
+      p * c, st));
 }

@@ -86,11 +86,15 @@ class Kernel:
         return self._fn
 
     def launch(self, device: torch.device, *args) -> None:
-        """Launch on ``device``'s current stream; raise on a launch error."""
-        fn = self._load()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            code = fn(*args, stream)
+        """Launch on ``device``'s current stream; raise on a launch error.
+        Switches the current device only when ``device`` is another card
+        (the engine launches hundreds of times per ingest on one card)."""
+        fn = self._fn or self._load()
+        if device.index is None or device.index == torch.cuda.current_device():
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                code = fn(*args, torch.cuda.current_stream().cuda_stream)
         if code != 0:
             msg = self._lib.repro_cuda_error_string(code).decode()
             raise RuntimeError(
@@ -142,14 +146,14 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P]),
     "segment_sums": Kernel(
         "segment_sums", "segment_sums.cu", "segment_sums_launch",
-        [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _P]),
+        [_P, _P, _P, _P, _P, _I64, _I32, _I64, _P]),
     "scatter_merge": Kernel(
         "scatter_merge", "scatter_merge.cu", "scatter_merge_launch",
-        [_P, _P, _P, _P, _P, _I64, _I32, _I64, _P]),
+        [_P, _P, _P, _P, _I64, _I32, _I64, _P]),
     "scatter_merge_parts": Kernel(
         "scatter_merge_parts", "scatter_merge_parts.cu",
         "scatter_merge_parts_launch",
-        [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I64, _P]),
+        [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I64, _P]),
     "chunk_sums": Kernel(
         "chunk_sums", "chunk_sums.cu", "chunk_sums_launch",
         [_P, _P, _P, _I64, _I32, _I64, _P]),

@@ -18,8 +18,9 @@ fixes its order, and each plain version below writes the SAME order with
 vectorized tensor ops, so kernel and plain version agree bit for bit:
 
 - segment sums: a pairwise tree over each segment's rows, relative to the
-  segment's first row (``csrc/segment_tree.cuh`` builds it tile by tile,
-  then the levels above a tile from the tile sums);
+  segment's first row (``csrc/segment_tree.cuh`` builds it in 256-row
+  tiles, a warp per window of rows, then folds a longer segment's tile
+  sums by the same tree);
 - scatter merge: each destination's run of duplicate positions summed by
   the same tree, in delta-row order, then added onto the table cell (per
   partition, for the partitioned merge: runs are keyed by (partition,
@@ -44,10 +45,20 @@ CHUNK_SUMS = build.KERNELS["chunk_sums"]
 
 # canonical chunk width of the capacity-invariant query reductions
 CANONICAL_BLOCK = 1024
-# rows per tile of the segment-sum and scatter-merge kernels'
+# rows per tile of the segment-sum and scatter-merge kernels, which is
+# also the window of rows each warp of their tile pass owns
 # (REPRO_TREE_TILE in csrc/segment_tree.cuh); the tests emulate their
 # loops with it
 SEGMENT_TILE = 256
+
+
+def _tree_scratch(n: int, s: int, dev: torch.device) -> torch.Tensor:
+    """Scratch of the tree kernels (``csrc/segment_tree.cuh``): per window
+    of SEGMENT_TILE rows, 2 + S int64 words — a fold record and two tile
+    sums of S floats. Sized by tiles, not rows; the kernels write every
+    word they read, so it is not filled."""
+    return torch.empty((-(-n // SEGMENT_TILE), 2 + s), dtype=torch.int64,
+                       device=dev)
 
 
 def _run_starts(keys: torch.Tensor) -> torch.Tensor:
@@ -103,17 +114,13 @@ def segment_sums(values: torch.Tensor, perm: torch.Tensor,
     build.check("segment_sums values", values, torch.float32, (n, s))
     build.check("segment_sums perm", perm, torch.int64, (n,))
     build.check("segment_sums seg_ids", seg_ids, torch.int64, (n,))
+    # zeros: a segment with no rows keeps its row of +0.0
     out = torch.zeros((num_segments, s), dtype=torch.float32, device=dev)
     if n and s and num_segments:
-        # scratch: each segment's first row, and the tile sums (written and
-        # read at tile-head rows only)
-        starts = torch.full((num_segments,), -1, dtype=torch.int64,
-                            device=dev)
-        tiles = torch.empty((n, s), dtype=torch.float32, device=dev)
         SEGMENT_SUMS.launch(dev, values.data_ptr(), perm.data_ptr(),
-                            seg_ids.data_ptr(), starts.data_ptr(),
-                            tiles.data_ptr(), out.data_ptr(), n, s,
-                            num_segments)
+                            seg_ids.data_ptr(),
+                            _tree_scratch(n, s, dev).data_ptr(),
+                            out.data_ptr(), n, s, num_segments)
     return out
 
 
@@ -153,12 +160,9 @@ def scatter_merge(table: torch.Tensor, pos: torch.Tensor,
     build.check("scatter_merge pos", pos, torch.int64, (b,))
     build.check("scatter_merge vals", vals, torch.float32, (b, s))
     if b and s and c:
-        # scratch: each position's first delta row, and the tile sums
-        starts = torch.full((c,), -1, dtype=torch.int64, device=dev)
-        tiles = torch.empty((b, s), dtype=torch.float32, device=dev)
         SCATTER_MERGE.launch(dev, table.data_ptr(), pos.data_ptr(),
-                             vals.data_ptr(), starts.data_ptr(),
-                             tiles.data_ptr(), b, s, c)
+                             vals.data_ptr(),
+                             _tree_scratch(b, s, dev).data_ptr(), b, s, c)
     return table
 
 
@@ -203,15 +207,12 @@ def scatter_merge_parts(tables: torch.Tensor, pos: torch.Tensor,
     build.check("scatter_merge_parts pos", pos, torch.int64, (p, b))
     build.check("scatter_merge_parts vals", vals, torch.float32, (p, b, s))
     if p and b and s and c:
-        # scratch: each row's global slot (or -1), each slot's first row,
-        # and the tile sums
+        # scratch: each row's global slot (or -1), and the tree's
         slots = torch.empty((p * b,), dtype=torch.int64, device=dev)
-        starts = torch.full((p * c,), -1, dtype=torch.int64, device=dev)
-        tiles = torch.empty((p * b, s), dtype=torch.float32, device=dev)
         SCATTER_MERGE_PARTS.launch(dev, tables.data_ptr(), pos.data_ptr(),
                                    vals.data_ptr(), slots.data_ptr(),
-                                   starts.data_ptr(), tiles.data_ptr(), p, b,
-                                   s, c)
+                                   _tree_scratch(p * b, s, dev).data_ptr(),
+                                   p, b, s, c)
     return tables
 
 

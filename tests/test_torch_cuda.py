@@ -46,12 +46,18 @@ def _case_cem_keys_matches_plain():
     assert torch.equal(kh, ph) and torch.equal(kl, pl)
 
 
-def _case_segment_sums_matches_plain(n_groups, invalid):
+def _bits(x):
+    """A float tensor's bits: ``torch.equal`` takes -0.0 for +0.0."""
+    import torch
+    return x.contiguous().view(torch.int32)
+
+
+def _case_segment_sums_matches_plain(n_groups, invalid, s=12):
     import torch
     from repro_torch.kernels import segment_stats as ss
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    n, s = (1 << 16) + 5, 12
+    n = (1 << 16) + 5
     n_inv = int(n * invalid)
     seg = np.sort(rng.integers(0, n_groups, n - n_inv))
     _, seg = np.unique(seg, return_inverse=True)
@@ -60,7 +66,68 @@ def _case_segment_sums_matches_plain(n_groups, invalid):
     vals = _t(rng.normal(0, 1, (n, s)).astype(np.float32), dev)
     args = (vals, _t(perm.astype(np.int64), dev),
             _t(seg.astype(np.int64), dev), n)
-    assert torch.equal(ss.segment_sums(*args), ss.segment_sums_plain(*args))
+    assert torch.equal(_bits(ss.segment_sums(*args)),
+                       _bits(ss.segment_sums_plain(*args)))
+
+
+# run lengths around the tile (256 rows) and window edges, one of 65,537
+# rows, and one of 2^20 (an offline subclass's size)
+RUN_LENGTHS = (1, 2, 255, 256, 257, 511, 512, 513, 3, 65537, 1, 300)
+
+
+def _runs(rng, s, lengths=RUN_LENGTHS):
+    """Segment ids: a 37-row run, then ``lengths`` shuffled (each later run
+    starts mid-window), five -1 rows after the fourth run (dropped ids
+    between kept ones) and a 40-row dropped tail; values with -0.0
+    scattered, a one-row run and a 257-row run (where there is one) of
+    -0.0. Returns (seg, vals, kept id count)."""
+    lengths = [37] + list(rng.permutation(lengths))
+    seg, sid = [], 0
+    for i, length in enumerate(lengths):
+        seg += [sid] * int(length)
+        sid += 1
+        if i == 3:
+            seg += [-1] * 5
+    seg = np.asarray(seg + [sid] * 40, np.int64)
+    n = seg.shape[0]
+    vals = rng.normal(0, 1, (n, s)).astype(np.float32)
+    vals[rng.random((n, s)) < 0.05] = np.float32(-0.0)
+    starts = np.flatnonzero(np.r_[True, seg[1:] != seg[:-1]])
+    lens = np.diff(np.r_[starts, n])
+    for length in (1, 257):
+        if (lens == length).any():
+            z = starts[lens == length][0]
+            vals[z:z + length] = np.float32(-0.0)
+    return seg, vals, sid
+
+
+def _case_segment_sums_run_lengths(s, lengths=RUN_LENGTHS, unaligned=False):
+    """Runs of every length around the tile and window edges, gathered
+    through a random permutation; ``unaligned``: the values are a view
+    4 bytes past a 16-byte boundary (``x[1:]`` of a flat buffer). Bit for
+    bit, one launch per call."""
+    import torch
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10 + s + len(lengths))
+    seg, vals, g = _runs(rng, s, lengths)
+    n = seg.shape[0]
+    perm = rng.permutation(n).astype(np.int64)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(n)
+    x = _t(vals[inv], dev)
+    if unaligned:
+        flat = torch.empty((n * s + 1,), dtype=torch.float32, device=dev)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(n, s)
+        assert x.data_ptr() % 16 == 4
+    args = (x, _t(perm, dev), _t(seg, dev), g)
+    before = ss.SEGMENT_SUMS.launches
+    got = ss.segment_sums(*args)
+    assert ss.SEGMENT_SUMS.launches == before + 1
+    assert torch.equal(_bits(got), _bits(ss.segment_sums_plain(*args)))
+    if 1 in lengths:      # a -0.0 row's segment is -0.0, not the fill's +0.0
+        assert bool((_bits(got) == np.int32(-2 ** 31)).any())
 
 
 def _case_scatter_merge_matches_plain():
@@ -75,11 +142,98 @@ def _case_scatter_merge_matches_plain():
     vals = _t(rng.normal(0, 1, (b, s)).astype(np.float32), dev)
     pos = _t(pos, dev)
     got = ss.scatter_merge(table.clone(), pos, vals)
-    assert torch.equal(got, ss.scatter_merge_plain(table.clone(), pos, vals))
+    assert torch.equal(_bits(got),
+                       _bits(ss.scatter_merge_plain(table.clone(), pos,
+                                                    vals)))
     # an empty delta launches nothing and leaves the table as it was
     before = ss.SCATTER_MERGE.launches
     out = ss.scatter_merge(table.clone(), pos[:0], vals[:0])
-    assert torch.equal(out, table) and ss.SCATTER_MERGE.launches == before
+    assert torch.equal(_bits(out), _bits(table))
+    assert ss.SCATTER_MERGE.launches == before
+
+
+def _case_scatter_merge_run_lengths(s, unaligned=False):
+    """Runs of duplicate positions of every length around the tile and
+    window edges, positions below 0 and past the table (dropped), -0.0 in
+    the delta and the table; bit for bit, one launch."""
+    import torch
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20 + s)
+    seg, vals, g = _runs(rng, s)
+    pos = np.maximum.accumulate(seg)        # the -1 rows join the run before
+    c = g + 3
+    pos = np.where(pos >= g, c + 2, pos + 2)
+    pos[:3] = -1
+    table = rng.normal(0, 5, (c, s)).astype(np.float32)
+    table[rng.random((c, s)) < 0.2] = np.float32(-0.0)
+    table, pos = _t(table, dev), _t(pos.astype(np.int64), dev)
+    x = _t(vals, dev)
+    if unaligned:
+        n = x.shape[0]
+        flat = torch.empty((n * s + 1,), dtype=torch.float32, device=dev)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(n, s)
+    before = ss.SCATTER_MERGE.launches
+    got = ss.scatter_merge(table.clone(), pos, x)
+    assert ss.SCATTER_MERGE.launches == before + 1
+    assert torch.equal(_bits(got),
+                       _bits(ss.scatter_merge_plain(table.clone(), pos, x)))
+
+
+# device operations per call (PERF.md): segment_sums zero-fills its output
+# and launches the tile pass and the fold; scatter_merge launches the two;
+# scatter_merge_parts adds its slot pass
+DEVICE_OPS = {"segment_sums": 3, "scatter_merge": 2, "scatter_merge_parts": 3}
+
+
+def _device_ops(fn):
+    """Device operations (kernels, memsets, copies) one call of ``fn``
+    issues, by name, as the profiler records them (after one warm-up
+    call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def _case_tree_kernels_device_ops_and_empty_inputs():
+    """Each tree kernel's device operations per call, as DEVICE_OPS states;
+    no launch for an empty input."""
+    import torch
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    n, s, c = 5000, 12, 3000
+    vals = _t(rng.normal(0, 1, (n, s)).astype(np.float32), dev)
+    perm = _t(rng.permutation(n).astype(np.int64), dev)
+    pos = torch.sort(_t(rng.integers(0, c, n).astype(np.int64), dev)).values
+    table = torch.zeros((c, s), device=dev)
+    tables = torch.zeros((4, c, s), device=dev)
+    ppos = torch.sort(_t(rng.integers(0, c, (4, n)).astype(np.int64), dev),
+                      dim=1).values
+    pvals = _t(rng.normal(0, 1, (4, n, s)).astype(np.float32), dev)
+    got = {
+        "segment_sums": _device_ops(lambda: ss.segment_sums(vals, perm, pos,
+                                                            c)),
+        "scatter_merge": _device_ops(lambda: ss.scatter_merge(table, pos,
+                                                              vals)),
+        "scatter_merge_parts": _device_ops(
+            lambda: ss.scatter_merge_parts(tables, ppos, pvals)),
+    }
+    assert {k: sum(v.values()) for k, v in got.items()} == DEVICE_OPS, got
+    before = dict(ss.build.launch_counts())
+    out = ss.segment_sums(vals[:0], perm[:0], pos[:0], c)
+    assert out.shape == (c, s) and not bool(out.any())
+    ss.scatter_merge_parts(tables, ppos[:, :0], pvals[:, :0])
+    assert ss.build.launch_counts() == before
 
 
 def _case_chunk_sums_matches_plain(n):
@@ -272,13 +426,13 @@ def _case_scatter_merge_parts_matches_plain(n_parts, b):
     got = ss.scatter_merge_parts(tables.clone(), pos, vals)
     assert ss.SCATTER_MERGE_PARTS.launches == before + 1
     want = ss.scatter_merge_parts_plain(tables.clone(), pos, vals)
-    assert torch.equal(got, want)
+    assert torch.equal(_bits(got), _bits(want))
     for p in range(n_parts):               # = the single-table merge
-        assert torch.equal(got[p], ss.scatter_merge(
-            tables[p].clone(), pos[p].contiguous(), vals[p].contiguous()))
+        assert torch.equal(_bits(got[p]), _bits(ss.scatter_merge(
+            tables[p].clone(), pos[p].contiguous(), vals[p].contiguous())))
     out = ss.scatter_merge_parts(tables.clone(), pos[:, :0].contiguous(),
                                  vals[:, :0].contiguous())
-    assert torch.equal(out, tables)
+    assert torch.equal(_bits(out), _bits(tables))
     assert ss.SCATTER_MERGE_PARTS.launches == before + 1
     with pytest.raises(ValueError):
         ss.scatter_merge_parts(tables, pos[0], vals)
@@ -379,7 +533,16 @@ def test_kernels_and_engine_on_the_card_match_plain(cuda):
     _case_cem_keys_matches_plain()
     for n_groups, invalid in ((5000, 0.3), (3, 0.9)):
         _case_segment_sums_matches_plain(n_groups, invalid)
+    _case_segment_sums_matches_plain(40, 0.5, s=6)
+    for s in (1, 6, 12):
+        _case_segment_sums_run_lengths(s)
+        _case_scatter_merge_run_lengths(s)
+    for s in (6, 12):
+        _case_segment_sums_run_lengths(s, unaligned=True)
+        _case_scatter_merge_run_lengths(s, unaligned=True)
+    _case_segment_sums_run_lengths(4, lengths=(1 << 20,))
     _case_scatter_merge_matches_plain()
+    _case_tree_kernels_device_ops_and_empty_inputs()
     for n in (1, 1024, 70001):
         _case_chunk_sums_matches_plain(n)
     for n, d in ((8192, 4), (70001, 9), (5, 1), (3000, 64)):

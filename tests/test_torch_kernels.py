@@ -165,38 +165,174 @@ def _check_cem_keys_matches_reference_op():
 
 
 # -------------------------------------------------------------- segment sums
-def _tree(items):
-    """The kernels' binary-counter pairwise sum of f32 items (tree_push
-    then tree_fold in csrc/segment_sums.cu)."""
-    stack = {}
-    for r, carry in enumerate(items):
-        k = 0
-        while (r >> k) & 1:
-            carry = np.float32(stack[k] + carry)
-            k += 1
-        stack[k] = carry
+# The tree kernels' constants (csrc/segment_tree.cuh): rows a warp loads
+# before its window, columns per block of the tile kernel, and the fold's
+# warps, buffer per warp and columns per pass.
+TREE_BACK, TREE_CW = 32, 4
+FOLD_WARPS, FOLD_BUF, FOLD_CG = 8, 1024, 16
+
+
+def _push(stack, r, carry):
+    """tree_push: item r onto the binary-counter stack (arrays of columns;
+    level k joins ``stack[k] + carry``)."""
+    k = 0
+    while (r >> k) & 1:
+        carry = (stack[k] + carry).astype(np.float32)
+        k += 1
+    stack[k] = carry
+
+
+def _fold(stack, r):
+    """tree_fold: the stack of r items, joined from the lowest level up; a
+    level with no right operand passes through."""
     acc = None
     for k in range(64):
-        if (len(items) >> k) & 1:
-            acc = stack[k] if acc is None else np.float32(stack[k] + acc)
+        if (r >> k) & 1:
+            acc = stack[k] if acc is None else (stack[k] + acc).astype(
+                np.float32)
     return acc
 
 
-def _emulate_segment_sums(vals, perm, seg, g, tile):
-    """The CUDA kernel's passes, step for step, in f32: per (segment,
-    column) a pairwise sum over each ``tile`` rows (relative to the
-    segment's first row), then a pairwise sum over the tile sums."""
+def _pairwise(items):
+    """The pinned tree over the rows of ``items`` (a chunk's levels in
+    shared memory): level k adds row a + 2^k onto row a, a a multiple of
+    2^(k+1), where it exists."""
+    buf = items.copy()
+    h = 1
+    while h < buf.shape[0]:
+        for a in range(0, buf.shape[0] - h, 2 * h):
+            buf[a] = buf[a] + buf[a + h]
+        h *= 2
+    return buf[0]
+
+
+def _run_start_search(keys, hi, key):
+    """tree_run_start: 32 probes a step, galloping back by powers of 32
+    from stride 32 (the 32 rows before the window are in the run), then
+    narrowing; keys[hi] == key."""
+    lanes = np.arange(32, dtype=np.int64)
+    n = keys.shape[0]
+    step = 32
+    while True:
+        j = hi - step * (lanes + 1)
+        differs = (j < 0) | (keys[np.clip(j, 0, n - 1)] != key)
+        if differs.any():
+            f = int(np.argmax(differs))
+            lo, hi = hi - step * (f + 1), hi - step * f
+            break
+        hi, step = hi - step * 32, step * 32
+    while hi - lo > 1:
+        step = (hi - lo + 31) // 32
+        j = lo + step * (lanes + 1)
+        equal = (j >= hi) | ((j >= 0) & (keys[np.clip(j, 0, n - 1)] == key))
+        f = int(np.argmax(equal))
+        hi, lo = min(hi, lo + step * (f + 1)), lo + step * f
+    return hi
+
+
+def _emulate_tree(vals, perm, keys, g, dst, merge, tile):
+    """The tree kernels (csrc/segment_tree.cuh), step by step, in f32, on
+    the host: ``run_tiles_kernel`` — per window of ``tile`` rows, its
+    warp's region of rows [w0 - 32, w0 + 2 * tile) (index 32t + lane is
+    lane ``lane``'s row of ballot word t), the head and kept bits, the
+    start of the run crossing into the window (from the heads, or the
+    warp's search), each row's tile and the levels at which it is a left
+    node, the window's fold record, then per block of four columns the
+    gather and the in-tile levels (a row's right operand at level k is
+    row + 2^k: a shuffle below 32, a register 2^k / 32 words on above; a
+    vectorized add over the rows here) and the tile heads' writes (a
+    one-tile run to ``dst``, else a slot); then ``run_fold_kernel`` — each
+    recorded run's tile sums folded per super-chunk: eight chunks of a
+    power of two tiles, each folded by the tree, the eight sums joined by
+    the tree, the super-chunks by the binary counter. ``dst`` is updated
+    in place (``merge``: added onto)."""
     n, s = vals.shape
-    out = np.zeros((g, s), np.float32)
-    for sid in range(g):
-        rows = np.flatnonzero(seg == sid)
-        if rows.size == 0:
+    log = tile.bit_length() - 1
+    region = TREE_BACK + 2 * tile
+    nw = -(-n // tile)
+    rec = np.zeros((nw, 2), np.int64)
+    slots = np.zeros((nw, 2, s), np.float32)      # slot A, slot B
+    idx = np.arange(region)
+    q = np.arange(2 * tile)
+    for m in range(nw):
+        w0, w1, r0 = m * tile, min(m * tile + tile, n), m * tile - TREE_BACK
+        r = r0 + idx
+        inside = (r >= 0) & (r < n)
+        k = np.where(inside, keys[np.clip(r, 0, n - 1)], 0)
+        before = np.concatenate([[0], k[:-1]])
+        head = (r >= n) | (r == 0) | ((r > 0) & (idx > 0) & (before != k))
+        kept = inside & (k >= 0) & (k < g)
+        prev = np.maximum.accumulate(np.where(head, idx, -1))
+        nxt = np.minimum.accumulate(np.where(head, idx, region)[::-1])[::-1]
+        nxt = np.concatenate([nxt[1:], [region]])     # first head > ri
+        s_cross = -1
+        if not head[TREE_BACK] and kept[TREE_BACK]:
+            ph = prev[TREE_BACK]
+            s_cross = (r0 + ph if ph >= 0 else
+                       _run_start_search(keys, r0, keys[w0]))
+        ri = q + TREE_BACK
+        row = w0 + q
+        ok = (row < n) & kept[ri]
+        rs = np.where(prev[ri] >= 0, r0 + prev[ri], s_cross)
+        t0 = rs + ((row - rs) & ~(tile - 1))
+        own = ok & (t0 >= w0) & (t0 < w1)
+        re = r0 + nxt[ri]
+        te = np.minimum(t0 + tile, re)
+        first, last = t0 == rs, te == re
+        t0r, ter = t0 - w0, te - w0
+        reg = own & (row == t0) & ~first & last
+        rec[m] = (rs[reg][0], re[reg][0]) if reg.any() else (-1, 0)
+        heads = np.flatnonzero(own & (q == t0r))
+        # levels at which a row is a left node: its offset in the tile a
+        # multiple of 2^(k+1), row + 2^k inside the tile
+        rel, rem = np.maximum(q - t0r, 0), np.maximum(ter - q, 1)
+        ctz = np.where(rel > 0, np.log2(np.maximum(rel & -rel, 1)), log)
+        nlev = np.minimum(ctz, np.ceil(np.log2(rem))).astype(np.int64)
+        for c0 in range(0, s, TREE_CW):
+            cw = min(TREE_CW, s - c0)
+            v = np.zeros((cw, 2 * tile), np.float32)
+            src = row[own] if perm is None else perm[row[own]]
+            v[:, own] = vals[src, c0:c0 + cw].T
+            for lv in range(log):
+                h = 1 << lv
+                sel = q[own & (nlev > lv)]
+                v[:, sel] = v[:, sel] + v[:, sel + h]
+            for hq in heads:
+                if first[hq] and last[hq]:
+                    cell = keys[w0 + hq]
+                    dst[cell, c0:c0 + cw] = (dst[cell, c0:c0 + cw] + v[:, hq]
+                                             if merge else v[:, hq])
+                else:
+                    slots[m, int(first[hq]), c0:c0 + cw] = v[:, hq]
+    for m in range(nw):
+        if rec[m, 0] < 0:
             continue
-        for col in range(s):
-            x = [np.float32(vals[perm[r], col]) for r in rows]
-            out[sid, col] = _tree([_tree(x[k:k + tile])
-                                   for k in range(0, len(x), tile)])
-    return out
+        lo, hi = rec[m]
+        tiles = -(-(hi - lo) // tile)
+        m0 = lo // tile
+        sums = np.stack([slots[m0 + j, int(j == 0)] for j in range(tiles)])
+        cell = keys[lo]
+        for c0 in range(0, s, FOLD_CG):
+            cg = min(FOLD_CG, s - c0)
+            ch = 1 << ((FOLD_BUF // cg).bit_length() - 1)
+            sup = ch * FOLD_WARPS
+            supers = -(-tiles // sup)
+            stack = {}
+            for sc in range(supers):
+                part = [_pairwise(sums[c * ch:(c + 1) * ch, c0:c0 + cg])
+                        for c in range(sc * FOLD_WARPS, (sc + 1) * FOLD_WARPS)
+                        if c * ch < tiles]
+                _push(stack, sc, _pairwise(np.stack(part)))
+            v = _fold(stack, supers)
+            dst[cell, c0:c0 + cg] = (dst[cell, c0:c0 + cg] + v if merge
+                                     else v)
+    return dst
+
+
+def _emulate_segment_sums(vals, perm, seg, g, tile):
+    """``segment_sums_launch``: out zero-filled, then the tree kernels."""
+    out = np.zeros((g, vals.shape[1]), np.float32)
+    return _emulate_tree(vals, perm, seg, g, out, False, tile)
 
 
 def _port_segment_sums_plain(vals, perm, seg, g):
@@ -209,20 +345,68 @@ def _port_segment_sums_plain(vals, perm, seg, g):
     return got.numpy(), bool(torch.equal(wrapper, got)), ss.SEGMENT_TILE
 
 
-def _check_segment_sums_plain_matches_kernel_loop(n, s, groups, inv):
-    rng = np.random.default_rng(n * s)
-    vals = rng.normal(0, 1, (n, s)).astype(np.float32)
-    seg, perm = _sorted_segments(rng, n, groups, inv)
-    g = int(seg.max()) + 1
+def _check_segment_sums_emulation(vals, perm, seg, g):
     got, wrapper_is_plain, kernel_tile = _port_segment_sums_plain(
         vals, perm, seg, g)
     # the kernel's tile, and a small one: the tree does not depend on it
-    for tile in (kernel_tile, 4):
+    for tile in (kernel_tile, 16):
         want = _emulate_segment_sums(vals, perm, seg, g, tile)
         np.testing.assert_array_equal(got.view(np.uint32),
                                       want.view(np.uint32))
     # the CPU wrapper is the plain version
     assert wrapper_is_plain
+
+
+def _check_segment_sums_plain_matches_kernel_loop(n, s, groups, inv):
+    rng = np.random.default_rng(n * s)
+    vals = rng.normal(0, 1, (n, s)).astype(np.float32)
+    seg, perm = _sorted_segments(rng, n, groups, inv)
+    _check_segment_sums_emulation(vals, perm, seg, int(seg.max()) + 1)
+
+
+# run lengths around the tile and window edges (each run after the first
+# starts mid-window), and one of 65,537 rows: one more than 256 tiles
+RUN_LENGTHS = (1, 2, 255, 256, 257, 511, 512, 513, 3, 65537, 1, 300)
+
+
+def _runs_with_signed_zeros(rng, s):
+    """Segment ids of RUN_LENGTHS (in a shuffled order after a 37-row run,
+    so later runs start mid-window), -1 rows between two of them (dropped
+    ids between kept ones, as the batched re-sort merge passes them) and
+    a dropped tail; values with -0.0 runs: a one-row run and a 257-row run
+    of -0.0 (a sum that must stay -0.0), and -0.0 scattered elsewhere."""
+    lengths = [37] + list(rng.permutation(RUN_LENGTHS))
+    seg, sid = [], 0
+    for i, length in enumerate(lengths):
+        seg += [sid] * int(length)
+        sid += 1
+        if i == 3:
+            seg += [-1] * 5
+    g = sid
+    seg += [g] * 40                                  # dropped tail
+    seg = np.asarray(seg, np.int64)
+    n = seg.shape[0]
+    vals = rng.normal(0, 1, (n, s)).astype(np.float32)
+    vals[rng.random((n, s)) < 0.05] = np.float32(-0.0)
+    starts = np.flatnonzero(np.r_[True, seg[1:] != seg[:-1]])
+    lens = np.diff(np.r_[starts, n])
+    one = starts[lens == 1][0]
+    vals[one] = np.float32(-0.0)
+    z = starts[lens == 257][0]
+    vals[z:z + 257] = np.float32(-0.0)
+    return seg, vals, g
+
+
+def _check_segment_sums_run_lengths(s):
+    rng = np.random.default_rng(100 + s)
+    seg, vals, g = _runs_with_signed_zeros(rng, s)
+    perm = np.arange(seg.shape[0], dtype=np.int64)
+    _check_segment_sums_emulation(vals, perm, seg, g)
+    # the same rows gathered through a random permutation
+    perm = rng.permutation(seg.shape[0]).astype(np.int64)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0])
+    _check_segment_sums_emulation(vals[inv], perm, seg, g)
 
 
 def _port_segment_sums(vals, seg, g):
@@ -255,20 +439,10 @@ def _check_segment_sums_matches_reference(n, s, block):
 
 # ------------------------------------------------------------- scatter merge
 def _emulate_scatter_merge(table, pos, vals, tile):
-    """The CUDA kernel's passes in f32: each run of equal positions summed
-    as tile trees then a tree over the tile sums, added onto the cell."""
-    out = table.copy()
-    b, s = vals.shape
-    for p in np.unique(pos):
-        if not 0 <= p < out.shape[0]:
-            continue
-        rows = np.flatnonzero(pos == p)
-        for col in range(s):
-            x = [np.float32(vals[r, col]) for r in rows]
-            run = _tree([_tree(x[k:k + tile])
-                         for k in range(0, len(x), tile)])
-            out[p, col] = np.float32(out[p, col] + run)
-    return out
+    """``scatter_merge_launch``: the tree kernels on the delta rows (no
+    perm), each run's sum added onto its cell."""
+    return _emulate_tree(vals, None, pos, table.shape[0], table.copy(), True,
+                         tile)
 
 
 def _port_scatter_merge_plain(table, pos, vals):
@@ -282,6 +456,14 @@ def _port_scatter_merge(table, pos, vals):
     return ss.scatter_merge(_t(table.copy()), _t(pos), _t(vals)).numpy()
 
 
+def _check_scatter_merge_emulation(table, pos, vals):
+    got, kernel_tile = _port_scatter_merge_plain(table, pos, vals)
+    for tile in (kernel_tile, 16):
+        want = _emulate_scatter_merge(table, pos, vals, tile)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
 def _check_scatter_merge_plain_matches_kernel_loop(c, b, s):
     rng = np.random.default_rng(c + b)
     table = rng.normal(0, 5, (c, s)).astype(np.float32)
@@ -289,11 +471,22 @@ def _check_scatter_merge_plain_matches_kernel_loop(c, b, s):
     # non-decreasing positions with runs of duplicates, like the fast path
     pos = np.sort(rng.integers(0, c, b)).astype(np.int64)
     pos[-max(1, b // 5):] = c - 1            # the invalid-row tail
-    got, kernel_tile = _port_scatter_merge_plain(table, pos, vals)
-    for tile in (kernel_tile, 4):
-        want = _emulate_scatter_merge(table, pos, vals, tile)
-        np.testing.assert_array_equal(got.view(np.uint32),
-                                      want.view(np.uint32))
+    _check_scatter_merge_emulation(table, pos, vals)
+
+
+def _check_scatter_merge_run_lengths(s):
+    """Runs of duplicate positions of RUN_LENGTHS, positions below 0 and
+    past the table (dropped), and -0.0 in the delta and the table."""
+    rng = np.random.default_rng(200 + s)
+    seg, vals, g = _runs_with_signed_zeros(rng, s)
+    # non-decreasing: the -1 rows join the run before them
+    pos = np.maximum.accumulate(seg)
+    c = g + 3
+    pos = np.where(pos >= g, c + 2, pos + 2)         # a dropped tail
+    pos[:3] = -1
+    table = rng.normal(0, 5, (c, s)).astype(np.float32)
+    table[rng.random((c, s)) < 0.2] = np.float32(-0.0)
+    _check_scatter_merge_emulation(table, pos.astype(np.int64), vals)
 
 
 def _check_scatter_merge_matches_reference(c, b, s):
@@ -431,13 +624,19 @@ def test_plain_versions_match_reference():
 
 
 def test_plain_versions_match_the_kernels_loops():
-    """Each plain version bit for bit against a step-by-step emulation of
-    its CUDA kernel's loop: ragged sizes, long runs of one key, and the
-    kernel's tile as well as a small one."""
+    """Each plain version bit for bit (as uint32) against a step-by-step
+    emulation of its CUDA kernels: ragged sizes, long runs of one key, run
+    lengths around the tile and window edges up to 65,537 rows, runs that
+    start mid-window, dropped ids, -0.0 values, S = 1, 5, 6 and 12, and
+    the kernel's tile as well as a small one."""
     for n, s, groups, inv in ((300, 3, 40, 0.3), (1000, 2, 7, 0.5),
-                              (129, 4, 129, 0.0), (64, 1, 1, 0.9)):
+                              (129, 4, 129, 0.0), (64, 1, 1, 0.9),
+                              (5000, 12, 200, 0.4)):
         _check_segment_sums_plain_matches_kernel_loop(n, s, groups,
                                                       inv)
+    for s in (1, 5, 6, 12):
+        _check_segment_sums_run_lengths(s)
+        _check_scatter_merge_run_lengths(s)
     for c, b, s in ((64, 200, 3), (16, 40, 12), (300, 7, 2), (4, 1500, 2)):
         _check_scatter_merge_plain_matches_kernel_loop(c, b, s)
     for n, s in ((1024, 2), (3000, 5), (1, 1), (5000, 1)):
