@@ -74,9 +74,14 @@ Phases; each one that fails exits non-zero:
    and k = 8, and timed there and at the path's 2^17 x 2^17 (with
    ``torch.cdist(...).topk(k)`` over the path's 16 slabs of 8,192 queries,
    summed, as its yardstick);
-   ``greedy_sweep`` bit for bit on the sample's and the path's edges and
-   on the path's rows at a wide caliper; both rows' ``max_abs_err`` are
-   the largest |kernel - plain| those comparisons measured.
+   the launch it plans there (R queries a thread, S control ranges, the
+   block counts) printed as the ``knn_topk_launch`` line;
+   ``greedy_sweep`` bit for bit on the sample's and the path's edges, on
+   the path's rows at a wide caliper and on the dense shape (those
+   candidates with every row treated), with the count of edges below BIG
+   in each set (the ``greedy_sweep_edges`` line), timed in turns with the
+   one-thread kernel it replaced on the path's and the dense edges; both rows' ``max_abs_err`` are the
+   largest |kernel - plain| those comparisons measured.
    Then steady-state repeats of the propensity path (cold and
    warm fits over the reservoir, ``propensity_scores``), and the main
    path's stream six times more, in turns on the same card: replicated
@@ -1237,6 +1242,20 @@ def knn_kernel_check(torch, U, c_valid, counts) -> dict:
     b, by = bound(nq)
     path_b, _ = bound(nc)
     src, rep = KERNEL_FILES["knn_topk"]
+    index = torch.cuda.current_device()
+    launch = {}
+    for label, n_q, kk in (("slab_k8", nq, 8), ("path_k1", nc, 1),
+                           ("path_k8", nc, 8)):
+        slots = tk.resident_blocks(index, kk, d)
+        r, qblocks, n_ranges, span = tk.plan(n_q, nc, kk, d, slots)
+        launch[label] = dict(R=r, resident_blocks=slots,
+                             query_blocks=qblocks, S=n_ranges,
+                             controls_per_range=span,
+                             blocks=qblocks * n_ranges,
+                             merge_blocks=(-(-n_q // tk.THREADS)
+                                           if n_ranges > 1 else 0))
+    print(json.dumps({"knn_topk_launch": dict(
+        sms=tk.sm_count(index), **launch)}))
     return dict(
         name="knn_topk", route="cuda", source=src, replaces=rep,
         launches=counts["knn_topk"], max_abs_err=err,
@@ -1260,7 +1279,7 @@ def knn_kernel_check(torch, U, c_valid, counts) -> dict:
                     kk, dim=1, largest=False)
                 for q in range(0, nc, KNN_SLAB)], 1, warmup=1)
                 for kk in (1, 8)},
-            path_bound_ms=path_b,
+            path_bound_ms=path_b, launch=launch,
             note="ms, plain_ms, bound_ms and library_ms are the "
                  f"{nq} x {nc} slab at k = 8; path_ms the path's "
                  f"{nc} x {nc} calls (NNMWR k = 1, NNMNR's candidates "
@@ -1269,12 +1288,15 @@ def knn_kernel_check(torch, U, c_valid, counts) -> dict:
                  "(the whole distance matrix does not fit)"))
 
 
-def sweep_edges(torch, res):
+def sweep_edges(torch, res, every_row=False):
     """The sorted candidate edges ``greedy_nnmnr`` swept for an NNMNR
     result (its with-replacement ``ok`` is ``dist < BIG`` on treated
-    rows)."""
+    rows); with ``every_row``, the same candidates with every row taken as
+    treated (the dense shape: every filled slot an edge below BIG)."""
     from repro_torch.kernels.knn_topk import BIG
-    ok = (res.dist < BIG) & res.treated_mask[:, None]
+    ok = res.dist < BIG
+    if not every_row:
+        ok = ok & res.treated_mask[:, None]
     d = torch.where(ok, res.dist, BIG).reshape(-1)
     n, m = res.idx.shape
     order = torch.sort(d, stable=True).indices
@@ -1283,31 +1305,72 @@ def sweep_edges(torch, res):
             t[order].contiguous(), n)
 
 
+def sweep_one_thread(torch, d, c, t, n_rows: int, k: int):
+    """The one-thread kernel that ``greedy_sweep``'s kernels replaced
+    (``greedy_sweep_serial_launch`` in the same source; the same contract),
+    the yardstick the redesign is timed against. Its calls count no
+    launch."""
+    import ctypes
+    from repro_torch.kernels import greedy_sweep as gs
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    taken = torch.zeros(d.shape, dtype=torch.bool, device=d.device)
+    used_c = torch.zeros((n_rows,), dtype=torch.uint8, device=d.device)
+    cnt_t = torch.zeros((n_rows,), dtype=torch.int32, device=d.device)
+    fn = gs.KERNEL.function("greedy_sweep_serial_launch",
+                            [p, p, p, i64, i64, i32, p, p, p, p])
+    code = fn(d.data_ptr(), c.data_ptr(), t.data_ptr(), d.shape[0], n_rows,
+              k, used_c.data_ptr(), cnt_t.data_ptr(), taken.data_ptr(),
+              torch.cuda.current_stream(d.device).cuda_stream)
+    if code != 0:
+        fail(f"greedy_sweep_serial_launch: error {code}")
+    return taken
+
+
 def sweep_kernel_check(torch, small, full, wide, counts) -> dict:
     """``greedy_sweep`` against its plain version on the card, bit for
     bit, on the CPU_MATCH_ROWS sample's edges (its wide-caliper NNMNR's),
-    on the path's (the 2^17-row Mahalanobis NNMNR's, caliper 0.5) and on
-    the same rows' edges at WIDE_CALIPER, where most treated rows take a
-    control; timed on the path's and on the wide ones. No library call
+    on the path's (the 2^17-row Mahalanobis NNMNR's, caliper 0.5), on the
+    same rows' edges at WIDE_CALIPER, where most treated rows take a
+    control, and on the dense shape (those candidates with every row
+    treated: every edge below BIG); timed on the path's, the wide and the
+    dense edges, beside the one-thread kernel it replaced on the path's
+    and the dense edges (in turns: old, new, new, old). No library call
     computes it."""
     from repro_torch.kernels import greedy_sweep as gs
-    err, differ, taken = 0.0, {}, {}
-    for label, res in (("sample", small), ("path", full),
-                       ("path_wide", wide)):
-        args = sweep_edges(torch, res)
+    from repro_torch.kernels.knn_topk import BIG
+    err, differ, taken, below = 0.0, {}, {}, {}
+    sets = {"sample": sweep_edges(torch, small),
+            "path": sweep_edges(torch, full),
+            "path_wide": sweep_edges(torch, wide),
+            "dense": sweep_edges(torch, wide, every_row=True)}
+    for label, args in sets.items():
         kf = gs.greedy_sweep(*args, 1)
         pf = gs.greedy_sweep_plain(*args, 1)
         diff = (kf.to(torch.int32) - pf.to(torch.int32)).abs()
         differ[label] = int(diff.sum())
         taken[label] = int(kf.sum())
+        below[label] = int((args[0] < BIG).sum())
         if diff.numel():
             err = max(err, float(diff.max()))
         if not torch.equal(kf, pf):
             fail(f"greedy_sweep differs from its plain version ({label}: "
                  f"{differ[label]} flags)")
-    wd, wc, wt, wn = sweep_edges(torch, wide)
-    d, c, t, n = sweep_edges(torch, full)
+    print(json.dumps({"greedy_sweep_edges": dict(below_big=below,
+                                                  taken=taken)}))
+    d, c, t, n = sets["path"]
     e = d.shape[0]
+
+    def in_turns(args):
+        old = [timed(torch, lambda: sweep_one_thread(torch, *args, 1), 2,
+                     warmup=1)]
+        new = [timed(torch, lambda: gs.greedy_sweep(*args, 1), 10)
+               for _ in range(2)]
+        old.append(timed(torch, lambda: sweep_one_thread(torch, *args, 1),
+                         2, warmup=1))
+        return new, old
+
+    path_new, path_old = in_turns(sets["path"])
+    dense_new, dense_old = in_turns(sets["dense"])
     # edges read once (f32 distance, two int64 indices), one byte written
     # per edge; a few integer operations per edge
     b, by = bound_ms(e * 21, e * 4)
@@ -1315,20 +1378,26 @@ def sweep_kernel_check(torch, small, full, wide, counts) -> dict:
     return dict(
         name="greedy_sweep", route="cuda", source=src, replaces=rep,
         launches=counts["greedy_sweep"], max_abs_err=err,
-        ms=timed(torch, lambda: gs.greedy_sweep(d, c, t, n, 1), 3,
-                 warmup=1),
+        ms=path_new[0],
         plain_ms=timed(torch, lambda: gs.greedy_sweep_plain(d, c, t, n, 1),
                        1, warmup=0),
         bound_ms=b, bound_us=b * 1e3, bound_by=by, library_ms=None,
         shapes=dict(
-            edges=e, n_rows=n, taken=taken, flags_differing=differ,
-            wide_ms=timed(torch, lambda: gs.greedy_sweep(wd, wc, wt, wn, 1),
-                          3, warmup=1),
+            edges=e, n_rows=n, below_big=below, taken=taken,
+            flags_differing=differ, ms_in_turns=path_new,
+            one_thread_ms=path_old,
+            wide_ms=timed(torch, lambda: gs.greedy_sweep(
+                *sets["path_wide"], 1), 3, warmup=1),
+            dense_ms=dense_new, dense_one_thread_ms=dense_old,
             wide_caliper=WIDE_CALIPER, tpu_kernel=False,
             note="ms and plain_ms are the path's edges (caliper "
                  f"{MAHALANOBIS_CALIPER}); wide_ms the same rows' edges "
-                 f"at caliper {WIDE_CALIPER}; max_abs_err the largest "
-                 "|kernel - plain| over all three sets' flags"))
+                 f"at caliper {WIDE_CALIPER}; dense_ms those candidates "
+                 "with every row treated; one_thread_ms the kernel this "
+                 "one replaced, timed in turns with it; "
+                 "below_big the edges each set has below BIG; "
+                 "max_abs_err the largest |kernel - plain| over all four "
+                 "sets' flags"))
 
 
 def run_offline(torch, np, joined, true_sate):

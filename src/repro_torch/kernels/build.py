@@ -102,6 +102,16 @@ class Kernel:
                 f"({msg})")
         self.launches += 1
 
+    def function(self, entry: str, argtypes: Sequence, restype=ctypes.c_int):
+        """Another C function of this kernel's library (a sizing helper, or
+        a yardstick kernel); calling it counts no launch."""
+        if self._fn is None:
+            self._load()
+        fn = getattr(self._lib, entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
+
 
 def build_all(kernels: Optional[Sequence[Kernel]] = None) -> List[str]:
     """Compile every kernel whose library is missing — one ``nvcc`` per
@@ -163,10 +173,11 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _I64, _I32, _I64, _P]),
     "knn_topk": Kernel(
         "knn_topk", "knn_topk.cu", "knn_topk_launch",
-        [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
+         _I64, _P]),
     "greedy_sweep": Kernel(
         "greedy_sweep", "greedy_sweep.cu", "greedy_sweep_launch",
-        [_P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P]),
+        [_P, _P, _P, _I64, _I64, _I32, _P, _I64, _P, _P]),
 }
 
 
@@ -191,3 +202,4 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+

@@ -8,14 +8,24 @@ an edge is taken iff ``d < BIG``, its control is unused and its treated
 unit holds fewer than k controls; control and treated indices are clipped
 to ``[0, n_rows)`` first, as the scan clips them. The sweep is sequential
 by nature (each verdict depends on every earlier one; the paper's
-Prop. 1), so the kernel (``csrc/greedy_sweep.cu``) is one thread, and the
-plain version is a Python loop. Integer logic: the two agree bit for bit.
+Prop. 1), and the plain version is a Python loop. The kernels
+(``csrc/greedy_sweep.cu``) drop the edges that are not below BIG, which
+never change the state, keeping the order of the rest (a parallel
+compaction); one thread of one block then walks what is left, in order,
+with the state in shared memory, while the block's other warps stage the
+next chunk of edges. Integer logic:
+kernel and plain version agree bit for bit. The kernel takes n_rows below
+2^31.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build
+
+_I64 = ctypes.c_longlong
 
 KERNEL = build.KERNELS["greedy_sweep"]
 BIG = 3.4e38
@@ -54,9 +64,11 @@ def greedy_sweep(d: torch.Tensor, c: torch.Tensor, t: torch.Tensor,
         raise ValueError(f"greedy_sweep: n_rows={n_rows}")
     taken = torch.zeros((e,), dtype=torch.bool, device=dev)
     if e:
-        used_c = torch.zeros((n_rows,), dtype=torch.uint8, device=dev)
-        cnt_t = torch.zeros((n_rows,), dtype=torch.int32, device=dev)
+        words = KERNEL.function("greedy_sweep_scratch_words", [_I64, _I64],
+                                _I64)(e, n_rows)
+        scratch = torch.empty((words,), dtype=torch.int64, device=dev)
         KERNEL.launch(dev, d.data_ptr(), c.data_ptr(), t.data_ptr(), e,
-                      n_rows, k, used_c.data_ptr(), cnt_t.data_ptr(),
+                      n_rows, k, scratch.data_ptr(), words,
                       taken.data_ptr())
     return taken
+

@@ -16,10 +16,13 @@ keeps ``knn_quadratic``'s convention.)
 
 The norms and the dot product add their d terms in ascending column
 order, each product and sum rounded on its own, in the kernel
-(``csrc/knn_topk.cu``: one thread per query, control tiles in shared
-memory, a running top-k in registers) and in the plain version below
-(elementwise tensor ops, a loop over tiles of queries x controls), so the
-two agree bit for bit. The plain version merges each tile into the running
+(``csrc/knn_topk.cu``) and in the plain version below (elementwise tensor
+ops, a loop over tiles of queries x controls), so the two agree bit for
+bit. The kernel gives each thread R queries (:func:`queries_per_thread`)
+and, when the query blocks alone would not fill the card, splits the
+controls into S contiguous ranges whose partial top-k lists a second
+kernel merges (:func:`plan` chooses R and S; the merge's result is the
+same for any S). The plain version merges each tile into the running
 top-k with ``torch.topk`` over int64 keys ``(bits(d2) << 32) | (idx + 1)``:
 the bit pattern of a non-negative f32 orders as its value, so the keys
 order as (d2, idx) lexicographically and are distinct — no tie is left to
@@ -32,6 +35,8 @@ raise above that.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -46,6 +51,12 @@ MAX_D = 64
 # that a step's temporaries stay in a CPU's caches)
 PLAIN_QBLOCK = 1024
 PLAIN_BLOCK = 2048
+# the kernel's threads a block and controls a tile (csrc/knn_topk.cu)
+THREADS = 128
+TILE = 128
+# a control range holds at least MIN_RANGE controls (unless there are
+# fewer)
+MIN_RANGE = 1024
 
 
 def _check(k: int, d: int) -> None:
@@ -55,6 +66,49 @@ def _check(k: int, d: int) -> None:
     if not 1 <= d <= MAX_D:
         raise ValueError(f"knn_topk: d={d} outside [1, {MAX_D}] (the "
                          f"kernel's limit; the plain version keeps it too)")
+
+
+def queries_per_thread(k: int, d: int) -> int:
+    """R, the queries each thread of the kernel holds in registers: 4 for
+    K = 1 and 8, 2 for K = 16 (K = k rounded up to 1, 8 or 16), 1 above
+    width 8."""
+    if d > 8:
+        return 1
+    return 2 if k > 8 else 4
+
+
+def plan(nq: int, nc: int, k: int, d: int, slots: int
+         ) -> Tuple[int, int, int, int]:
+    """The kernel's launch: (R, query blocks, S control ranges, rows a
+    range). ``slots`` is how many blocks of the partial kernel the card
+    holds at once (:func:`resident_blocks`). While the query blocks number
+    fewer, the controls are split into as many ranges as keep every block
+    resident (one wave: no tail of lone blocks); a range is whole tiles,
+    at least MIN_RANGE controls unless there are fewer, and no range is
+    empty."""
+    r = queries_per_thread(k, d)
+    qblocks = -(-nq // (THREADS * r))
+    s = max(1, min(slots // qblocks, nc // MIN_RANGE))
+    per = -(-nc // s)
+    span = max(TILE, -(-per // TILE) * TILE)
+    return r, qblocks, max(1, -(-nc // span)), span
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(index: int, k: int, d: int) -> int:
+    """Blocks of the partial kernel for (k, d) that CUDA device ``index``
+    holds at once: its occupancy per SM (from the CUDA runtime) times its
+    SMs."""
+    per_sm = KERNEL.function("knn_topk_blocks_per_sm",
+                             [ctypes.c_int, ctypes.c_int])
+    with torch.cuda.device(index):
+        return max(1, per_sm(d, k)) * sm_count(index)
 
 
 def _sq_norms(X: torch.Tensor) -> torch.Tensor:
@@ -115,8 +169,15 @@ def knn_topk(Q: torch.Tensor, C: torch.Tensor, c_valid: torch.Tensor,
     d2 = torch.empty((nq, k), dtype=torch.float32, device=dev)
     idx = torch.empty((nq, k), dtype=torch.int64, device=dev)
     if nq:
+        r, _, s, span = plan(nq, nc, k, d, resident_blocks(dev.index, k, d))
+        part_d = part_i = None
+        if s > 1:
+            pd = torch.empty((s * k * nq,), dtype=torch.float32, device=dev)
+            pi = torch.empty((s * k * nq,), dtype=torch.int32, device=dev)
+            part_d, part_i = pd.data_ptr(), pi.data_ptr()
         KERNEL.launch(dev, Q.data_ptr(), C.data_ptr(), c_valid.data_ptr(),
-                      d2.data_ptr(), idx.data_ptr(), nq, nc, d, k)
+                      d2.data_ptr(), idx.data_ptr(), part_d, part_i, nq, nc,
+                      d, k, r, s, span)
     return d2, idx
 
 

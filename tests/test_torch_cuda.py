@@ -588,10 +588,15 @@ def _case_knn_topk_matches_plain(nq, nc, d, k, share, integer):
         assert bool((ki[:, n_valid:] == -1).all())
 
 
-def _case_greedy_sweep_matches_plain(n_edges, n_rows, k, quantum):
-    """The sweep kernel against its plain version on sorted edges with
-    BIG distances, out-of-range indices (clipped) and, with ``quantum``,
-    equal distances — the taken flags equal, one launch."""
+def _case_greedy_sweep_matches_plain(n_edges, n_rows, k, quantum,
+                                     big=0.2, unsorted=False, n_ids=None):
+    """The sweep kernels against their plain version: edges sorted (or,
+    with ``unsorted``, in random order with NaN and inf distances), a
+    ``big`` share at BIG, out-of-range indices (clipped), with
+    ``quantum`` equal distances, with ``n_ids`` few distinct indices (many
+    edges for each control and unit); the state in shared memory or, for n_rows above
+    what fits or k above 255, in device memory — the taken flags equal,
+    one launch."""
     import torch
     from repro_torch.kernels import greedy_sweep as gs
     dev = torch.device("cuda")
@@ -599,10 +604,15 @@ def _case_greedy_sweep_matches_plain(n_edges, n_rows, k, quantum):
     d = rng.random(n_edges).astype(np.float32)
     if quantum:
         d = (np.round(d / quantum) * quantum).astype(np.float32)
-    d[rng.random(n_edges) < 0.2] = np.float32(3.4e38)
-    d = np.sort(d, kind="stable")
-    c = rng.integers(-2, n_rows + 2, n_edges).astype(np.int64)
-    t = rng.integers(0, n_rows, n_edges).astype(np.int64)
+    d[rng.random(n_edges) < big] = np.float32(3.4e38)
+    if unsorted:
+        d[rng.random(n_edges) < 0.05] = np.nan
+        d[rng.random(n_edges) < 0.05] = np.inf
+    else:
+        d = np.sort(d, kind="stable")
+    hi = n_ids or n_rows
+    c = rng.integers(-2, hi + 2, n_edges).astype(np.int64)
+    t = rng.integers(0, hi, n_edges).astype(np.int64)
     args = (_t(d, dev), _t(c, dev), _t(t, dev), n_rows, k)
     before = gs.KERNEL.launches
     got = gs.greedy_sweep(*args)
@@ -627,11 +637,28 @@ def _case_matching_wrappers_refuse():
 def test_matching_kernels_on_the_card_match_plain(cuda):
     """The k-NN and sweep kernels against their plain versions, and the
     wrappers' guards."""
+    # S = 1 (fewer than 2,048 controls, or enough query blocks) and S > 1
+    # (few query blocks); K = 1, 8, 16; exact widths 1-8 and the padded 64;
+    # query counts off every multiple of R x 128
     for case in ((300, 1000, 5, 1, 0.5, False), (129, 4099, 5, 8, 0.3, True),
                  (1000, 777, 3, 16, 0.7, True), (64, 300, 64, 8, 0.5, False),
-                 (257, 513, 9, 5, 0.0, False), (200, 300, 2, 16, 0.02, True)):
+                 (257, 513, 9, 5, 0.0, False), (200, 300, 2, 16, 0.02, True),
+                 (8191, 1 << 15, 5, 8, 0.9, False),
+                 (5000, 3000, 1, 1, 0.5, True),
+                 (777, 2500, 7, 16, 0.5, True), (1100, 2100, 8, 8, 0.4, False),
+                 (33, 5000, 64, 16, 0.5, False), (70001, 700, 6, 3, 0.5, True),
+                 (600000, 2100, 4, 1, 0.5, True)):
         _case_knn_topk_matches_plain(*case)
+    # state in shared memory; in device memory (n_rows above ~177,000, or
+    # k above 255); every edge below BIG (2^20 of them); none; unsorted
+    # with NaN and inf; few distinct controls and units
     for case in ((50000, 3000, 1, 0.0), (20000, 500, 2, 0.01),
                  (1, 1, 1, 0.0)):
         _case_greedy_sweep_matches_plain(*case)
+    _case_greedy_sweep_matches_plain(1 << 20, 1 << 17, 1, 0.0, big=0.0)
+    _case_greedy_sweep_matches_plain(300000, 300000, 1, 0.0)
+    _case_greedy_sweep_matches_plain(50000, 3000, 300, 0.0, n_ids=200)
+    _case_greedy_sweep_matches_plain(20000, 5000, 1, 0.0, big=1.0)
+    _case_greedy_sweep_matches_plain(60000, 5000, 2, 0.0, unsorted=True)
+    _case_greedy_sweep_matches_plain(40000, 1000, 3, 0.0, n_ids=40)
     _case_matching_wrappers_refuse()

@@ -23,7 +23,11 @@ Tolerances (stated once, used everywhere):
 - propensity models: rel 1e-4, as ``tests/test_torch_propensity.py``;
   downstream of the fit both packages get the same scores.
 
-Few test items on purpose: see ``tests/test_torch_kernels.py``.
+Few test items on purpose: see ``tests/test_torch_kernels.py``. The
+exception is section (b2), step-by-step emulations of the sweep and k-NN
+kernels' designs held bit for bit against their plain versions: numpy
+and torch only, no reference program compiled, one parametrised case
+each (a few seconds in all).
 """
 import importlib
 
@@ -204,6 +208,284 @@ def test_greedy_nnmnr_takes_the_reference_set():
                                  _t(idx.reshape(-1)[o].astype(np.int64)),
                                  _t(flat_t[o]), n_rows, k)
         assert np.array_equal(direct.numpy(), got.reshape(-1)[o])
+
+
+# ------------------------------------- (b2) the kernels' designs, emulated
+# csrc/greedy_sweep.cu: compaction tile, edges a warp ballots over, blocks
+# at most, edges a staged chunk; csrc/knn_topk.cu: threads a block and
+# controls a tile
+SWEEP_TILE, SWEEP_MAX_BLOCKS, SWEEP_CHUNK = 4096, 4096, 1024
+KNN_THREADS, KNN_TILE = 128, 128
+
+
+def _emulate_compaction(d, tile, max_blocks):
+    """sweep_count_kernel + sweep_compact_kernel: blocks of whole tiles;
+    each block's count of edges below BIG; per block, the counts of the
+    blocks before it, then per tile the eight warps' ballots of 32 edges
+    (a warp's edges a contiguous eighth of the tile), each flagged edge
+    written at the warp's offset + its rank in the ballot. Returns the
+    compacted edge indices (and checks the count the last block writes)."""
+    e = d.shape[0]
+    below = d < np.float32(BIG)
+    tiles = -(-e // tile)
+    span = -(-tiles // max_blocks) * tile
+    blocks = -(-e // span)
+    counts = [int(below[b * span:(b + 1) * span].sum())
+              for b in range(blocks)]
+    out = np.full(int(below.sum()), -1, np.int64)
+    warp_edges = tile // 8
+    base = 0
+    for b in range(blocks):
+        base = sum(counts[:b])
+        lo, hi = b * span, min((b + 1) * span, e)
+        for t0 in range(lo, hi, tile):
+            ballots, mine = [], []
+            for w in range(8):
+                w0 = t0 + w * warp_edges
+                bw = []
+                for j in range(0, warp_edges, 32):
+                    ids = w0 + j + np.arange(32)
+                    flag = (ids < hi) & below[np.clip(ids, 0, e - 1)]
+                    bw.append((ids, flag))
+                ballots.append(bw)
+                mine.append(sum(int(f.sum()) for _, f in bw))
+            for w in range(8):
+                off = base + sum(mine[:w])
+                for ids, flag in ballots[w]:
+                    rank = np.cumsum(flag) - flag
+                    out[off + rank[flag]] = ids[flag]
+                    off += int(flag.sum())
+            base += sum(mine)
+    assert base == out.shape[0] and (out >= 0).all()
+    return out
+
+
+def _emulate_sweep(d, c, t, n_rows, k, tile=SWEEP_TILE,
+                   max_blocks=SWEEP_MAX_BLOCKS, chunk=SWEEP_CHUNK):
+    """The sweep kernels step by step: the compaction; then chunk after
+    chunk of ``chunk`` compacted edges, staged (clipped (c, t) and the edge
+    index), walked in order by one thread with the state as the kernel
+    keeps it: the used controls as bits in 32-bit words, a count per
+    treated unit."""
+    e = d.shape[0]
+    inputs = _emulate_compaction(d, tile, max_blocks)
+    used = np.zeros(-(-n_rows // 32), np.uint32)
+    cnt = np.zeros(n_rows, np.int64)
+    taken = np.zeros(e, bool)
+    for lo in range(0, inputs.shape[0], chunk):
+        ids = inputs[lo:lo + chunk]
+        staged = zip(np.clip(c[ids], 0, n_rows - 1).tolist(),
+                     np.clip(t[ids], 0, n_rows - 1).tolist(), ids.tolist())
+        for ci, ti, ei in staged:
+            bit = np.uint32(1 << (ci & 31))
+            if not used[ci >> 5] & bit and cnt[ti] < k:
+                used[ci >> 5] |= bit
+                cnt[ti] += 1
+                taken[ei] = True
+    return taken
+
+
+def _sweep_edges(case, rng):
+    """Edge sets: unsorted with NaN and out-of-range indices, sorted with
+    ties, none below BIG, all below BIG, and few distinct indices (many
+    edges for each control and unit)."""
+    n, n_rows = 3000, 500
+    d = rng.random(n).astype(np.float32)
+    c = rng.integers(-3, n_rows + 3, n).astype(np.int64)
+    t = rng.integers(-2, n_rows + 2, n).astype(np.int64)
+    if case == "unsorted":
+        d[rng.random(n) < 0.5] = np.float32(BIG)
+        d[rng.random(n) < 0.05] = np.nan
+        d[rng.random(n) < 0.05] = np.inf
+    elif case == "sorted_ties":
+        d = np.round(d * 20).astype(np.float32) / np.float32(20)
+        d[rng.random(n) < 0.3] = np.float32(BIG)
+        d = np.sort(d, kind="stable")
+    elif case == "none_below":
+        d[:] = np.float32(BIG)
+        d[::7] = np.nan
+    elif case == "all_below":
+        d = np.sort(d, kind="stable")
+    elif case == "collisions":
+        c = rng.integers(0, 12, n).astype(np.int64)
+        t = rng.integers(0, 9, n).astype(np.int64)
+        d[rng.random(n) < 0.1] = np.float32(BIG)
+    elif case == "one_edge":
+        d, c, t = d[:1], c[:1], t[:1]
+    return d, c, t, n_rows
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("case", ["unsorted", "sorted_ties", "none_below",
+                                  "all_below", "collisions", "one_edge"])
+def test_greedy_sweep_design_takes_the_plain_set(case, k):
+    """The compaction and the staged one-thread sweep of
+    ``csrc/greedy_sweep.cu``, emulated step by step, at the kernel's tile,
+    block cap and chunk and at small ones (several blocks of several
+    tiles, chunks of 64), bit for bit against ``greedy_sweep_plain``."""
+    from repro_torch.kernels import greedy_sweep as gs
+    rng = np.random.default_rng(len(case) * 10 + k)
+    d, c, t, n_rows = _sweep_edges(case, rng)
+    want = gs.greedy_sweep_plain(_t(d), _t(c), _t(t), n_rows, k).numpy()
+    assert np.array_equal(_emulate_sweep(d, c, t, n_rows, k), want)
+    assert np.array_equal(_emulate_sweep(d, c, t, n_rows, k, tile=256,
+                                         max_blocks=3, chunk=64), want)
+    if case == "all_below":
+        assert want.sum() > 0
+
+
+def _pinned_norms(X, d):
+    n = X[:, 0] * X[:, 0]
+    for j in range(1, d):
+        n = n + X[:, j] * X[:, j]
+    return n
+
+
+def _insert(bd, bi, sel, x, ci):
+    """The kernels' insert, for the rows ``sel`` of (bd, bi): x goes in
+    after every held entry with d2 <= x (all of lower index), the entries
+    from there on move down one slot."""
+    K = bd.shape[1]
+    for s in range(K - 1, -1, -1):
+        here = x < bd[sel, s]
+        below = x < bd[sel, s - 1] if s > 0 else np.zeros_like(here)
+        bd[sel, s] = np.where(here, np.where(below, bd[sel, s - 1], x),
+                              bd[sel, s])
+        bi[sel, s] = np.where(here, np.where(below, bi[sel, s - 1], ci),
+                              bi[sel, s])
+
+
+def _emulate_knn(Q, C, valid, k, r, n_ranges, span, threads=KNN_THREADS,
+                 tile=KNN_TILE):
+    """``knn_partial_kernel`` + ``knn_merge_kernel`` step by step, in f32,
+    vectorized over the queries (each thread's R queries are independent):
+    query q0 + r * threads + thread of each block; per control range,
+    tiles of ``tile`` rows with the pinned norm (NaN for an invalid control
+    or a row past the range) beside zero-padded columns (width d up to 8,
+    else 64); per row the pinned d2 of every query, the strict test against
+    the K-th (before the clamp, which the insert applies) and the insert;
+    then the S partial top-k lists merged in range order with the same
+    test, each list left at its first entry not below the K-th."""
+    nq, d = Q.shape
+    nc = C.shape[0]
+    K = 1 if k <= 1 else 8 if k <= 8 else 16
+    D = d if d <= 8 else 64
+    big = np.float32(BIG)
+    # the thread mapping: every query exactly once
+    per = threads * r
+    blocks = -(-nq // per)
+    q_of = (np.arange(blocks)[:, None, None] * per
+            + np.arange(r)[None, :, None] * threads
+            + np.arange(threads)[None, None, :]).reshape(-1)
+    q_of = q_of[q_of < nq]
+    assert np.array_equal(np.sort(q_of), np.arange(nq))
+    Qp = np.zeros((nq, D), np.float32)
+    Qp[:, :d] = Q
+    qn = _pinned_norms(Q, d)
+    part_d = np.zeros((n_ranges, k, nq), np.float32)
+    part_i = np.zeros((n_ranges, k, nq), np.int64)
+    for g in range(n_ranges):
+        bd = np.full((nq, K), big, np.float32)
+        bi = np.full((nq, K), -1, np.int64)
+        lo, hi = g * span, min((g + 1) * span, nc)
+        for base in range(lo, hi, tile):
+            rows = base + np.arange(tile)
+            inside = rows < hi
+            Cp = np.zeros((tile, D), np.float32)
+            Cp[inside, :d] = C[rows[inside]]
+            cn = np.full(tile, np.nan, np.float32)
+            ok = inside.copy()
+            ok[inside] = valid[rows[inside]]
+            cn[ok] = _pinned_norms(Cp[ok], d)
+            for rr in range(tile):
+                dot = Qp[:, 0] * Cp[rr, 0]
+                for j in range(1, D):
+                    dot = dot + Qp[:, j] * Cp[rr, j]
+                x = (qn + cn[rr]) - np.float32(2.0) * dot
+                sel = np.flatnonzero(x < bd[:, K - 1])    # before the clamp
+                if sel.size:
+                    _insert(bd, bi, sel, np.maximum(x[sel], np.float32(0)),
+                            np.full(sel.size, base + rr, np.int64))
+        part_d[g], part_i[g] = bd[:, :k].T, bi[:, :k].T
+    if n_ranges == 1:
+        return part_d[0].T, part_i[0].T
+    bd = np.full((nq, K), big, np.float32)
+    bi = np.full((nq, K), -1, np.int64)
+    for g in range(n_ranges):
+        going = np.ones(nq, bool)
+        for s in range(k):
+            x = part_d[g, s]
+            going &= x < bd[:, K - 1]
+            sel = np.flatnonzero(going)
+            if sel.size:
+                _insert(bd, bi, sel, x[sel], part_i[g, s, sel])
+    return bd[:, :k], bi[:, :k]
+
+
+def _span(nc, n_ranges, tile):
+    per = -(-nc // n_ranges)
+    return max(tile, -(-per // tile) * tile)
+
+
+KNN_CASES = {
+    # name: (nq, nc, d, k, valid share, integer features, threads, tile,
+    #        S asked for (None: the wrapper's plan on 132 SMs))
+    "k1_ragged": (37, 300, 5, 1, 0.5, False, 4, 32, 3),
+    "k8_ties": (50, 777, 5, 8, 0.6, True, 4, 128, 4),
+    "k16_r2": (20, 513, 3, 16, 0.7, True, 8, 128, 2),
+    "wide_padded": (9, 200, 9, 5, 0.5, False, 4, 64, 2),
+    "all_invalid": (10, 300, 2, 3, 0.0, False, 4, 32, 3),
+    "k_above_valid": (30, 300, 4, 16, 0.02, True, 4, 32, 2),
+    "tie_at_boundary": (8, 300, 2, 8, 1.0, True, 4, 32, 3),
+    "nan_features": (16, 200, 5, 8, 0.8, False, 4, 32, 2),
+    "plan_split": (100, 4099, 5, 8, 0.9, False, KNN_THREADS, KNN_TILE, None),
+    "plan_one_range": (300, 1000, 5, 1, 0.5, False, KNN_THREADS, KNN_TILE,
+                       None),
+}
+
+
+@pytest.mark.parametrize("name", list(KNN_CASES))
+def test_knn_topk_design_matches_plain(name):
+    """The register-tiled, range-split k-NN of ``csrc/knn_topk.cu``,
+    emulated step by step (R queries a thread, S control ranges, the
+    merge), bit for bit against ``knn_topk_plain``: ties within and across
+    a range boundary (the lower index first), all controls invalid, k above
+    the valid count, NaN features, widths on the exact and the padded
+    path, K = 1 / 8 / 16 (R = 4 / 4 / 2, 1 when wide), nq not a multiple
+    of R x threads and nc not one of S or of the tile; then S = 1 on the
+    same inputs, and the wrapper's own plan where it splits."""
+    from repro_torch.kernels import knn_topk as tk
+    nq, nc, d, k, share, integer, threads, tile, s = KNN_CASES[name]
+    rng = np.random.default_rng(len(name) * 1000 + nq)
+    if integer:
+        Q = rng.integers(-2, 3, (nq, d)).astype(np.float32)
+        C = rng.integers(-2, 3, (nc, d)).astype(np.float32)
+    else:
+        Q = rng.normal(0, 2, (nq, d)).astype(np.float32)
+        C = rng.normal(0, 2, (nc, d)).astype(np.float32)
+    v = rng.random(nc) < share
+    if name == "tie_at_boundary":     # equal rows, valid from just before
+        C[:] = C[0]                   # the first range's end
+        v = np.arange(nc) >= _span(nc, s, tile) - 3
+    if name == "nan_features":
+        C[rng.random(nc) < 0.1, 1] = np.nan
+        Q[::5, 0] = np.nan
+    r = tk.queries_per_thread(k, d)
+    if s is None:      # 132 SMs holding 4 blocks each
+        r, qblocks, s, span = tk.plan(nq, nc, k, d, 132 * 4)
+        assert qblocks == -(-nq // (threads * r))
+        assert (s > 1) == (name == "plan_split")
+    else:
+        span = _span(nc, s, tile)
+        assert -(-nc // span) == s
+    pd, pi = tk.knn_topk_plain(_t(Q), _t(C), _t(v), k)
+    want_d, want_i = _bits(pd.numpy()), pi.numpy()
+    for n_ranges, sp in ((s, span), (1, max(tile, -(-nc // tile) * tile))):
+        gd, gi = _emulate_knn(Q, C, v, k, r, n_ranges, sp, threads, tile)
+        assert np.array_equal(_bits(gd), want_d), (name, n_ranges)
+        assert np.array_equal(gi, want_i), (name, n_ranges)
+    if name == "tie_at_boundary":
+        assert np.array_equal(want_i[0], np.arange(8) + span - 3)
 
 
 # ------------------------------------------------------ (c) entry points
