@@ -65,9 +65,14 @@ Phases; each one that fails exits non-zero:
    query's canonical re-sort and at the offline path's (the subclass
    groups over the 2^22 rows, and that call's longest run alone), and the
    trailing pseudo-group of invalid rows alone;
+   ``chunk_sums`` bit for bit at the query's shape (10,240 x 5) and at the
+   propensity standardisation's (2^22 x 4), timed by CUDA events and by
+   the profiler beside ``torch.sum`` over the zero-padded reshape, with
+   the host microseconds per call of both (1,000 calls, one synchronise);
    ``logistic_newton_terms`` at both of its shapes (the reservoir,
    8192 x 4, and the whole relation, 2^22 x 4), run twice to show
-   bitwise repeatability, and timed by CUDA events and by the profiler.
+   bitwise repeatability, and timed by CUDA events and by the profiler;
+   each call of these two wrappers must be one device operation.
    ``scatter_merge_parts`` at the shapes of the partitioned retraction's
    view merge. ``knn_topk`` bit for bit against its plain version on
    8,192 queries of the 2^17-row sample against all its controls, at k = 1
@@ -238,24 +243,33 @@ def timed(torch, fn, reps: int, warmup: int = 3) -> float:
 def device_ms(torch, fn, reps: int = 20) -> dict:
     """Device time per call of ``fn``, by kernel, under ``torch.profiler``
     (after one warm-up call): what the card spends, without the host's
-    launch overhead that a CUDA-event loop of a short call measures.
-    Kernel names are cut at their first parenthesis."""
+    launch overhead that a CUDA-event loop of a short call measures; and
+    the device operations (kernels, memsets, copies) per call. Kernel
+    names are cut at their first parenthesis."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
-            name = e.key.split("(")[0][-60:]
-            out[name] = out.get(name, 0.0) + \
-                e.self_device_time_total / 1e3 / reps
-    return dict(total=sum(out.values()), by_kernel=out)
+    # a window in which the profiler recorded no device activity at all
+    # (it happens now and then) is profiled again, at most twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        ops = 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+                name = e.key.split("(")[0][-60:]
+                out[name] = out.get(name, 0.0) + \
+                    e.self_device_time_total / 1e3 / reps
+                ops += e.count
+        if out:
+            break
+    return dict(total=sum(out.values()), by_kernel=out,
+                ops_per_call=ops / reps)
 
 
 def same_floats(torch, a, b) -> bool:
@@ -265,12 +279,33 @@ def same_floats(torch, a, b) -> bool:
 
 
 def device_split(torch, fn) -> dict:
-    """``device_ms`` of ``fn`` as (total, by kernel), kernel names cut to
-    their first 40 characters."""
+    """``device_ms`` of ``fn`` as (total, by kernel, ops per call), kernel
+    names cut to their first 40 characters."""
     d = device_ms(torch, fn)
     return dict(device_ms=d["total"],
                 device_by_kernel={k[:40]: v for k, v in
-                                  d["by_kernel"].items()})
+                                  d["by_kernel"].items()},
+                device_ops_per_call=d["ops_per_call"])
+
+
+def one_op(name: str, split: dict) -> None:
+    """A wrapper whose call must be one device operation: its kernel."""
+    if split["device_ops_per_call"] != 1:
+        fail(f"{name}: {split['device_ops_per_call']} device operations "
+             f"per call, not 1: {split['device_by_kernel']}")
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn``: ``calls`` calls with no
+    synchronise between them, then one (after a warm-up and a sync)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -678,7 +713,78 @@ def kernel_checks(torch, np, eng, batch, counts):
            timed(torch, lambda: torch.sum(resh, dim=1), 50),
            cn * cs * 4 + nb * cs * 4 + cs * 4, cn * cs,
            dict(values=[cn, cs], chunks=nb))
+    out[-1].update(device_split(torch, lambda: ss.chunk_sums(cvals)))
+    one_op("chunk_sums", out[-1])
+    out[-1]["library_device_ms"] = device_ms(
+        torch, lambda: torch.sum(resh, dim=1))["total"]
+    # the wrapper's host cost: Python, checks, the allocation, the views
+    # and the ctypes launch, against torch.sum's dispatch
+    out[-1]["host_us_per_call"] = host_us(torch,
+                                          lambda: ss.chunk_sums(cvals))
+    out[-1]["library_host_us_per_call"] = host_us(
+        torch, lambda: torch.sum(resh, dim=1))
+    out[-1]["host_split_us"] = chunk_sums_host_split(torch, cvals)
     return out, pseudo
+
+
+def chunk_sums_host_split(torch, vals) -> dict:
+    """Host microseconds per call of each step of the ``chunk_sums``
+    wrapper on ``vals`` (``host_us``: 1,000 calls each, no synchronise
+    between them): its guards, its allocation, its two views, and
+    ``Kernel.launch`` (the current device and stream, the ticket lookup,
+    the ctypes call, the error check and the count)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import segment_stats as ss
+    n, s = vals.shape
+    nb = ss._n_chunks(n)
+    dev = vals.device
+    buf = torch.empty((nb + 1, s), dtype=torch.float32, device=dev)
+
+    def guards():
+        build.require_cuda("chunk_sums", vals)
+        build.check("chunk_sums values", vals, torch.float32, (n, s))
+        ss._n_chunks(n)
+
+    return dict(
+        guards=host_us(torch, guards),
+        allocation=host_us(torch, lambda: torch.empty(
+            (nb + 1, s), dtype=torch.float32, device=dev)),
+        views=host_us(torch, lambda: (buf[:nb], buf[nb])),
+        launch=host_us(torch, lambda: ss.CHUNK_SUMS.launch(
+            dev, vals.data_ptr(), buf.data_ptr(), n, s, nb)))
+
+
+def chunk_sums_standardisation(torch, table) -> dict:
+    """``chunk_sums`` at the propensity standardisation's shape
+    (``core/propensity.py::_standardize``: the valid mask and the masked
+    features of PROPENSITY over the whole relation, 2^22 x 4): bit for bit
+    its plain version, timed by CUDA events and by the profiler (one
+    device op a call), beside ``torch.sum`` over the zero-padded reshape
+    and the bound."""
+    from repro_torch.kernels import segment_stats as ss
+    _, features = PROPENSITY
+    X = torch.stack([table[f].to(torch.float32) for f in features], -1)
+    w = table.valid.to(torch.float32)[:, None]
+    vals = torch.cat([w, X * w], dim=1).contiguous()
+    n, s = vals.shape
+    kp, kt = ss.chunk_sums(vals)
+    pp, pt = ss.chunk_sums_plain(vals)
+    if not (same_floats(torch, kp, pp) and same_floats(torch, kt, pt)):
+        fail("chunk_sums differs from its plain version at the "
+             "standardisation's shape")
+    nb = kp.shape[0]
+    padded = torch.zeros((nb * ss.CANONICAL_BLOCK, s), device=vals.device)
+    padded[:n] = vals
+    resh = padded.reshape(nb, ss.CANONICAL_BLOCK, s)
+    b, by = bound_ms(n * s * 4 + nb * s * 4 + s * 4, n * s)
+    split = device_split(torch, lambda: ss.chunk_sums(vals))
+    one_op("chunk_sums (standardisation)", split)
+    return dict(values=[n, s], chunks=nb,
+                ms=timed(torch, lambda: ss.chunk_sums(vals), 50), **split,
+                library_ms=timed(torch, lambda: torch.sum(resh, dim=1), 50),
+                library_device_ms=device_ms(
+                    torch, lambda: torch.sum(resh, dim=1))["total"],
+                bound_ms=b, bound_us=b * 1e3, bound_by=by)
 
 
 def query_segment_sums(torch, eng, treatment) -> dict:
@@ -849,9 +955,11 @@ def newton_check(torch, Xb, t, m, w):
     n_bytes = n * (4 * d + 8) + (d + d * d) * 4
     n_ops = n * (4 * d + 7 + 3 * d * (d + 1) // 2)
     b, by = bound_ms(n_bytes, n_ops)
+    split = device_split(torch, lambda: lg.logistic_newton_terms(*args))
+    one_op(f"logistic_newton_terms at {tuple(X.shape)}", split)
     return dict(
         err=err, ms=timed(torch, lambda: lg.logistic_newton_terms(*args), 50),
-        device_ms=device_ms(torch, lambda: lg.logistic_newton_terms(*args)),
+        **split,
         plain_ms=timed(torch, lambda: lg.logistic_newton_terms_plain(*args),
                        5),
         library_ms=timed(torch, library, 50),
@@ -877,7 +985,10 @@ def newton_checks(torch, eng, table, full_model, counts) -> dict:
         name="logistic_newton_terms", route="cuda", source=src,
         replaces=rep, launches=counts["logistic_newton_terms"],
         max_abs_err=max(res["err"], full["err"]), ms=full["ms"],
-        device_ms=full["device_ms"], plain_ms=full["plain_ms"],
+        device_ms=full["device_ms"],
+        device_by_kernel=full["device_by_kernel"],
+        device_ops_per_call=full["device_ops_per_call"],
+        plain_ms=full["plain_ms"],
         bound_ms=full["bound_ms"],
         bound_us=full["bound_ms"] * 1e3, bound_by=full["bound_by"],
         library_ms=full["library_ms"],
@@ -1597,6 +1708,10 @@ def main() -> None:
     kernels[1]["shapes"]["offline"] = offline_sums
     kernels.insert(3, parts_kernel_check(torch, part_eng, batches[0],
                                          part_counts))
+    for row in kernels:
+        if row["name"] == "chunk_sums":
+            row["shapes"]["standardisation"] = chunk_sums_standardisation(
+                torch, joined)
     kernels.append(newton_checks(torch, gpu_eng, joined, gpu_full, counts))
     kernels += offline_rows
     # the same stream in turns on this card: replicated with and without

@@ -12,7 +12,9 @@ Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises
 when that is non-zero and counts the launches that went through — the
 plain integer :attr:`Kernel.launches` is how a run shows that a path
-really reached the kernel.
+really reached the kernel. A kernel whose last block takes a combine by
+an integer ticket (``csrc/chunk_tree.cuh``) is also handed a 4-byte
+counter, one per device and stream (:func:`ticket`).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,11 +53,13 @@ class Kernel:
     """One CUDA source, its C entry point and its launch counter."""
 
     def __init__(self, name: str, source: str, entry: str,
-                 argtypes: Sequence):
+                 argtypes: Sequence, ticketed: bool = False):
         self.name = name
         self.source = CSRC / source
         self.entry = entry
         self.argtypes = list(argtypes)
+        # the entry takes the ticket counter just before the stream
+        self.ticketed = ticketed
         self.launches = 0
         self._fn = None
         self._lib = None
@@ -90,17 +94,24 @@ class Kernel:
         Switches the current device only when ``device`` is another card
         (the engine launches hundreds of times per ingest on one card)."""
         fn = self._fn or self._load()
-        if device.index is None or device.index == torch.cuda.current_device():
-            code = fn(*args, torch.cuda.current_stream().cuda_stream)
+        current = torch.cuda.current_device()
+        if device.index is None or device.index == current:
+            code = self._call(fn, current, args)
         else:
             with torch.cuda.device(device):
-                code = fn(*args, torch.cuda.current_stream().cuda_stream)
+                code = self._call(fn, device.index, args)
         if code != 0:
             msg = self._lib.repro_cuda_error_string(code).decode()
             raise RuntimeError(
                 f"CUDA kernel {self.name!r} failed to launch: error {code} "
                 f"({msg})")
         self.launches += 1
+
+    def _call(self, fn, index: int, args) -> int:
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.ticketed:
+            return fn(*args, ticket(index, stream), stream)
+        return fn(*args, stream)
 
     def function(self, entry: str, argtypes: Sequence, restype=ctypes.c_int):
         """Another C function of this kernel's library (a sizing helper, or
@@ -111,6 +122,30 @@ class Kernel:
         fn.argtypes = list(argtypes)
         fn.restype = restype
         return fn
+
+
+# (device index, stream handle) -> (counter, its address)
+_TICKETS: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
+_TICKETS_LOCK = threading.Lock()
+
+
+def ticket(index: int, stream: int) -> int:
+    """The address of the 4-byte ticket counter of device ``index`` and
+    ``stream``, zeroed once, at first use, on that stream, and kept (never
+    freed) while this module is loaded. A ticketed kernel's last block puts
+    it back to 0, and two launches on one stream run one after the other,
+    so they never hold it at once; launches on two streams hold two
+    counters."""
+    key = (index, stream)
+    hit = _TICKETS.get(key)
+    if hit is None:
+        with _TICKETS_LOCK:
+            hit = _TICKETS.get(key)
+            if hit is None:
+                counter = torch.zeros((1,), dtype=torch.int32,
+                                      device=torch.device("cuda", index))
+                hit = _TICKETS[key] = (counter, counter.data_ptr())
+    return hit[1]
 
 
 def build_all(kernels: Optional[Sequence[Kernel]] = None) -> List[str]:
@@ -166,11 +201,11 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I64, _P]),
     "chunk_sums": Kernel(
         "chunk_sums", "chunk_sums.cu", "chunk_sums_launch",
-        [_P, _P, _P, _I64, _I32, _I64, _P]),
+        [_P, _P, _I64, _I64, _I64, _P, _P], ticketed=True),
     "logistic_newton_terms": Kernel(
         "logistic_newton_terms", "logistic_grad.cu",
-        "logistic_newton_partials_launch",
-        [_P, _P, _P, _P, _P, _I64, _I32, _I64, _P]),
+        "logistic_newton_terms_launch",
+        [_P, _P, _P, _P, _P, _I64, _I32, _I64, _P, _P], ticketed=True),
     "knn_topk": Kernel(
         "knn_topk", "knn_topk.cu", "knn_topk_launch",
         [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,

@@ -8,15 +8,15 @@ caller's bias column, targets t, row weights m (N,) and coefficients w
 
     g = Xᵀ (m (σ(Xw) − t))        H = Xᵀ diag(m σ(Xw)(1 − σ(Xw))) X.
 
-Two passes on the card, no float atomics:
+One launch on the card, no float atomics (``csrc/logistic_grad.cu``):
 
-1. ``csrc/logistic_grad.cu``: one block per 1024-row tile computes each
-   row's logit (ascending j), p = 1/(1 + exp(−z)), r = m(p − t) and
-   s = (m p)(1 − p), and reduces the tile's Q = d + d(d+1)/2 terms
-   ``r x_j`` and ``(s x_j) x_k`` (j <= k) by the halving tree of
-   ``chunk_sums`` into one row of partials;
-2. the ``chunk_sums`` kernel adds the (n_tiles, Q) partials, and H's
-   upper triangle is mirrored by a gather.
+1. a warp per 1024-row tile computes each row's logit (ascending j),
+   p = 1/(1 + exp(−z)), r = m(p − t) and s = (m p)(1 − p), and reduces
+   the tile's Q = d + d(d+1)/2 terms ``r x_j`` and ``(s x_j) x_k``
+   (j <= k) by the halving tree of ``chunk_sums`` into tile partials;
+2. the last block by ticket adds the (n_tiles, Q) partials in
+   ``chunk_sums``' order and writes g and H, H's lower triangle the
+   mirror of its upper one.
 
 The plain version writes the same arithmetic in the same order (the
 per-row terms, then ``chunk_sums_plain`` over the rows and again over the
@@ -31,11 +31,10 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.segment_stats import (CANONICAL_BLOCK, chunk_sums,
-                                               chunk_sums_plain)
+from repro_torch.kernels.segment_stats import CANONICAL_BLOCK, chunk_sums_plain
 
 KERNEL = build.KERNELS["logistic_newton_terms"]
-# widest design matrix the kernel takes (its shared pair tables)
+# widest design matrix the kernel takes (its C entry point refuses more)
 MAX_D = 64
 
 
@@ -48,6 +47,13 @@ def _check_width(d: int) -> None:
         raise ValueError(f"logistic_newton_terms: d={d} outside [1, {MAX_D}]"
                          f" (the kernel's limit; the plain version keeps it "
                          f"too, so both take the same inputs)")
+
+
+def _scratch_floats(n_tiles: int, d: int) -> int:
+    """Floats of the kernel's scratch: the (Q, n_tiles) tile partials, the
+    (groups of 1024 tiles, Q) group sums, the Q totals, then g and H."""
+    q = _n_terms(d)
+    return q * n_tiles + -(-n_tiles // CANONICAL_BLOCK) * q + q + d + d * d
 
 
 def _upper_pairs(d: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,8 +112,10 @@ def logistic_newton_terms(X: torch.Tensor, t: torch.Tensor, m: torch.Tensor,
                           w: torch.Tensor) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     """Same contract as :func:`logistic_newton_terms_plain`. CPU tensors
-    take the plain version; CUDA tensors launch the kernel and then the
-    ``chunk_sums`` kernel (or raise)."""
+    take the plain version; CUDA tensors launch the kernel once (or
+    raise): g and H are views of its scratch. Its last block combines by
+    a ticket on the counter of the current stream (:func:`build.ticket`),
+    which the stream serialises between calls."""
     n, d = X.shape
     _check_width(d)
     if X.device.type == "cpu":
@@ -118,8 +126,9 @@ def logistic_newton_terms(X: torch.Tensor, t: torch.Tensor, m: torch.Tensor,
     build.check("logistic_newton_terms m", m, torch.float32, (n,))
     build.check("logistic_newton_terms w", w, torch.float32, (d,))
     n_tiles = max(1, -(-n // CANONICAL_BLOCK))
-    partials = torch.empty((n_tiles, _n_terms(d)), dtype=torch.float32,
-                           device=dev)
+    scratch = torch.empty((_scratch_floats(n_tiles, d),),
+                          dtype=torch.float32, device=dev)
     KERNEL.launch(dev, X.data_ptr(), t.data_ptr(), m.data_ptr(),
-                  w.data_ptr(), partials.data_ptr(), n, d, n_tiles)
-    return _assemble(chunk_sums(partials)[1], d)
+                  w.data_ptr(), scratch.data_ptr(), n, d, n_tiles)
+    out = scratch[-(d + d * d):]
+    return out[:d], out[d:].view(d, d)

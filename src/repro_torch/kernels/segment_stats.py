@@ -25,8 +25,9 @@ vectorized tensor ops, so kernel and plain version agree bit for bit:
   the same tree, in delta-row order, then added onto the table cell (per
   partition, for the partitioned merge: runs are keyed by (partition,
   position));
-- chunk sums: ten halving steps per 1024-row chunk, then the chunks
-  combined strictly in order.
+- chunk sums: ten halving steps per 1024-row chunk (a warp's registers
+  and shuffles, ``csrc/chunk_tree.cuh``), then the chunks combined
+  strictly in order, in the same launch.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
 """
@@ -245,19 +246,21 @@ def chunk_sums_plain(values: torch.Tensor
 
 
 def chunk_sums(values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Same contract as :func:`chunk_sums_plain`."""
+    """Same contract as :func:`chunk_sums_plain`; on CUDA one launch, the
+    partials and the totals views of one (nb + 1, S) buffer. Its last
+    block combines by a ticket on the counter of the current stream
+    (:func:`build.ticket`): two calls on one stream are serialised by the
+    stream, so they never hold the counter at once."""
     if values.device.type == "cpu":
         return chunk_sums_plain(values)
     dev = build.require_cuda("chunk_sums", values)
     n, s = values.shape
     build.check("chunk_sums values", values, torch.float32, (n, s))
     nb = _n_chunks(n)
-    partials = torch.empty((nb, s), dtype=torch.float32, device=dev)
-    totals = torch.empty((s,), dtype=torch.float32, device=dev)
+    out = torch.empty((nb + 1, s), dtype=torch.float32, device=dev)
     if s:
-        CHUNK_SUMS.launch(dev, values.data_ptr(), partials.data_ptr(),
-                          totals.data_ptr(), n, s, nb)
-    return partials, totals
+        CHUNK_SUMS.launch(dev, values.data_ptr(), out.data_ptr(), n, s, nb)
+    return out[:nb], out[nb]
 
 
 def chunked_sums(values: torch.Tensor) -> torch.Tensor:

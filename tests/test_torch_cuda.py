@@ -278,6 +278,174 @@ def _case_logistic_newton_terms_matches_plain(n, d):
                                  torch.zeros((lg.MAX_D + 1,), device=dev))
 
 
+def _newton_args(rng, n, d, dev):
+    X = rng.normal(0, 1, (n, d)).astype(np.float32)
+    X[:, -1] = 1.0
+    return [_t(a, dev) for a in (
+        X, (rng.random(n) < 0.3).astype(np.float32),
+        (rng.random(n) < 0.9).astype(np.float32),
+        rng.normal(0, 0.5, d).astype(np.float32))]
+
+
+def _newton_close(g, H, pg, pH):
+    for a, b in ((g, pg), (H, pH)):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert torch_equal(H, H.t())
+
+
+def torch_equal(a, b):
+    import torch
+    return torch.equal(_bits(a), _bits(b))
+
+
+# torch ops a one-launch wrapper may issue: an allocation and views of it,
+# none of which runs anything on the card
+NO_DEVICE_WORK = {"aten.empty", "aten.slice", "aten.select", "aten.view"}
+
+
+def _torch_ops(fn):
+    """The torch ops one call of ``fn`` dispatches (after a warm-up call)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    fn()
+    with Ops() as mode:
+        fn()
+    return mode.ops
+
+
+def _case_register_tree_kernels_one_launch_per_call():
+    """``chunk_sums`` at the query's 10,240 x 5 and the standardisation's
+    2^22 x 4, ``logistic_newton_terms`` at the reservoir's 8,192 x 4 and
+    2^22 x 4: one ``Kernel.launch`` per call (its C entry launches one
+    kernel) and no torch op that runs on the card, so one CUDA kernel per
+    call (``chip_smoke.py`` counts the same with the profiler); bit for
+    bit (Newton: rel 1e-6 of the plain version, two runs bitwise)."""
+    import torch
+    from repro_torch.kernels import logistic_grad as lg
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    for n, s in ((10240, 5), (1 << 22, 4)):
+        vals = _t(rng.normal(0, 100, (n, s)).astype(np.float32), dev)
+        before = ss.CHUNK_SUMS.launches
+        kp, kt = ss.chunk_sums(vals)
+        assert ss.CHUNK_SUMS.launches == before + 1
+        pp, pt = ss.chunk_sums_plain(vals)
+        assert torch_equal(kp, pp) and torch_equal(kt, pt), (n, s)
+        before = ss.CHUNK_SUMS.launches
+        ops = _torch_ops(lambda: ss.chunk_sums(vals))
+        assert ss.CHUNK_SUMS.launches == before + 2
+        assert set(ops) <= NO_DEVICE_WORK, ops
+    for n, d in ((8192, 4), (1 << 22, 4)):
+        args = _newton_args(rng, n, d, dev)
+        before = lg.KERNEL.launches
+        g, H = lg.logistic_newton_terms(*args)
+        assert lg.KERNEL.launches == before + 1
+        g2, H2 = lg.logistic_newton_terms(*args)
+        assert torch_equal(g, g2) and torch_equal(H, H2)
+        _newton_close(g, H, *lg.logistic_newton_terms_plain(*args))
+        before = lg.KERNEL.launches
+        ops = _torch_ops(lambda: lg.logistic_newton_terms(*args))
+        assert lg.KERNEL.launches == before + 2
+        assert set(ops) <= NO_DEVICE_WORK, ops
+
+
+def _case_ticket_returns_to_zero():
+    """200 calls in a row alternating between one block and many (the
+    ticket path) for each wrapper, each bit for bit its plain version
+    (``chunk_sums``) or its first run (Newton): a counter left above 0
+    would make no block the last. Then the same calls on a side stream,
+    which holds a counter of its own."""
+    import torch
+    from repro_torch.kernels import logistic_grad as lg
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    # 10,240 x 5: 50 (chunk, column) pairs, one block; 70,001 x 5: 345
+    sums = []
+    for n in (10240, 70001):
+        vals = _t(rng.normal(0, 100, (n, 5)).astype(np.float32), dev)
+        sums.append((vals, ss.chunk_sums_plain(vals)))
+    # 3,000 rows: 3 tiles, one block; 70,001: 69 tiles, 18 blocks
+    newton = []
+    for n in (3000, 70001):
+        args = _newton_args(rng, n, 4, dev)
+        g, H = lg.logistic_newton_terms(*args)
+        _newton_close(g, H, *lg.logistic_newton_terms_plain(*args))
+        newton.append((args, g.clone(), H.clone()))
+
+    def run(calls):
+        for i in range(calls):
+            vals, (pp, pt) = sums[i % 2]
+            kp, kt = ss.chunk_sums(vals)
+            assert torch_equal(kp, pp) and torch_equal(kt, pt), i
+            args, g0, H0 = newton[i % 2]
+            g, H = lg.logistic_newton_terms(*args)
+            assert torch_equal(g, g0) and torch_equal(H, H0), i
+
+    run(200)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(20)
+    torch.cuda.current_stream().wait_stream(side)
+    run(20)
+
+
+def _case_register_tree_wrappers_refuse():
+    """What the wrappers refuse (TypeError, ValueError) and what the C
+    entry points refuse (cudaErrorInvalidValue: ``Kernel.launch`` raises
+    and counts nothing): a chunk count or tile count that does not match
+    N, and d above 64."""
+    import torch
+    from repro_torch.kernels import logistic_grad as lg
+    from repro_torch.kernels import segment_stats as ss
+    dev = torch.device("cuda")
+    vals = torch.zeros((3000, 2), device=dev)
+    with pytest.raises(TypeError):
+        ss.chunk_sums(vals.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.chunk_sums(torch.zeros((2, 3000), device=dev).t())
+    X, t, m, w = _newton_args(np.random.default_rng(10), 3000, 4, dev)
+    with pytest.raises(ValueError, match="outside"):
+        lg.logistic_newton_terms(torch.zeros((8, 65), device=dev), t[:8],
+                                 m[:8], torch.zeros((65,), device=dev))
+    with pytest.raises(ValueError):
+        lg.logistic_newton_terms(X, t[:10], m, w)
+    with pytest.raises(TypeError):
+        lg.logistic_newton_terms(X, t, m.double(), w)
+    with pytest.raises(ValueError):
+        lg.logistic_newton_terms(X, t, m, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        lg.logistic_newton_terms(X.t().contiguous().t(), t, m, w)
+    before = dict(ss.build.launch_counts())
+    out = torch.empty((4, 2), device=dev)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        ss.CHUNK_SUMS.launch(dev, vals.data_ptr(), out.data_ptr(), 3000, 2,
+                             2)
+    scratch = torch.empty((1 << 16,), device=dev)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        lg.KERNEL.launch(dev, X.data_ptr(), t.data_ptr(), m.data_ptr(),
+                         w.data_ptr(), scratch.data_ptr(), 3000, 4, 4)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        lg.KERNEL.launch(dev, X.data_ptr(), t.data_ptr(), m.data_ptr(),
+                         w.data_ptr(), scratch.data_ptr(), 3000, 65, 3)
+    assert ss.build.launch_counts() == before
+    # and the counters still work
+    pp, pt = ss.chunk_sums_plain(vals)
+    kp, kt = ss.chunk_sums(vals)
+    assert torch_equal(kp, pp) and torch_equal(kt, pt)
+
+
 def _case_stream_step_reads_nothing_back():
     """A reservoir ingest and a retraction on the card under
     ``torch.cuda.set_sync_debug_mode("error")``: no op of the stream step
@@ -550,6 +718,16 @@ def test_kernels_and_engine_on_the_card_match_plain(cuda):
     _case_stream_step_reads_nothing_back()
     _case_wrappers_refuse_what_the_kernels_do_not_take()
     _case_engine_on_cuda_equals_engine_on_cpu()
+
+
+def test_register_tree_kernels_on_the_card(cuda):
+    """``chunk_sums`` and ``logistic_newton_terms``: one launch and one
+    device op per call at the main path's shapes and at 2^22 rows, the
+    ticket back at 0 after every call (200 alternating calls, two
+    streams), and the wrappers' and C entry points' refusals."""
+    _case_register_tree_kernels_one_launch_per_call()
+    _case_ticket_returns_to_zero()
+    _case_register_tree_wrappers_refuse()
 
 
 def test_partitioned_merge_and_engine_on_the_card_match_plain(cuda):

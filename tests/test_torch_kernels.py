@@ -587,6 +587,175 @@ def _check_chunked_sum_matches_reference_and_ignores_zero_padding(n):
         assert _port_chunked_sum(padded) == got
 
 
+# The register-tree kernels (csrc/chunk_tree.cuh, chunk_sums.cu,
+# logistic_grad.cu), emulated with numpy over whole arrays. Their constants:
+CS_ONE_BLOCK_PAIRS = 64    # REPRO_CS_ONE_BLOCK_PAIRS: one block up to here
+CS_WARPS = 16              # REPRO_CS_WARPS: warps a block above it
+CS_TILE = 4096             # REPRO_CS_TILE: floats a combine buffer
+NT_WARPS = 4               # REPRO_NT_WARPS: tiles (warps) a Newton block
+NT_COMBINE = 256           # REPRO_NT_COMBINE: floats a pass-2 buffer
+
+
+def _emulate_warp_tree(v):
+    """``chunk_tree`` on v (..., 32, 32): v[..., a, l] is register a of
+    lane l, row l + 32a of the chunk. Register steps pair a with a + h
+    (h = 16 ... 1), then ``__shfl_down_sync`` by 16 ... 1 adds lane
+    l + o's value to lane l (lanes past 32 - o read their own). Returns
+    lane 0's value (...)."""
+    v = v.copy()
+    h = 16
+    while h >= 1:
+        v[..., :h, :] = v[..., :h, :] + v[..., h:2 * h, :]
+        h //= 2
+    x = v[..., 0, :]
+    o = 16
+    while o >= 1:
+        x = x + np.concatenate([x[..., o:], x[..., 32 - o:]], axis=-1)
+        o //= 2
+    return x[..., 0]
+
+
+def _emulate_chunk_pairs(mat):
+    """``chunk_pairs`` over an (n, s) matrix: pair (chunk c, column col) by
+    one warp, lane l loading rows 1024c + l + 32a (+0.0 past n). Returns
+    the (nb, s) chunk sums."""
+    n, s = mat.shape
+    nb = max(1, -(-n // 1024))
+    pad = np.zeros((nb * 1024, s), np.float32)
+    pad[:n] = mat
+    regs = pad.reshape(nb, 32, 32, s).transpose(0, 3, 1, 2)
+    return _emulate_warp_tree(regs)
+
+
+def _emulate_chunk_combine(parts, tile):
+    """``chunk_combine``: columns in groups of 32 (lane c of warp 0 adds
+    column c0 + c), rows staged ``(tile // w - 4) & ~3`` at a time; chunk
+    0's value first, then every later chunk in order."""
+    nb, s = parts.shape
+    tot = np.zeros(s, np.float32)
+    for c0 in range(0, s, 32):
+        w = min(32, s - c0)
+        rows = (tile // w - 4) & ~3
+        t = None
+        for k in range(-(-nb // rows)):
+            buf = parts[k * rows:min(nb, (k + 1) * rows), c0:c0 + w]
+            for r in range(buf.shape[0]):
+                t = buf[r].copy() if t is None else t + buf[r]
+        tot[c0:c0 + w] = t
+    return tot
+
+
+def _emulate_chunk_sums_kernel(vals, rng):
+    """``chunk_sums_kernel`` as launched: the pairs dealt to the grid's
+    warps, each written once into the (nb + 1, S) buffer (unwritten slots
+    NaN, as ``torch.empty`` may hold anything), the blocks finishing in a
+    random order; the one-block path combines after its barrier, the
+    many-block path in the block that draws the last ticket."""
+    n, s = vals.shape
+    nb = max(1, -(-n // 1024))
+    pairs = nb * s
+    if pairs <= CS_ONE_BLOCK_PAIRS:
+        blocks, warps = 1, max(2, min(pairs, 32))
+    else:
+        blocks, warps = min(-(-pairs // CS_WARPS), 1 << 16), CS_WARPS
+    sums = _emulate_chunk_pairs(vals).reshape(-1)
+    out = np.full((nb + 1) * s, np.nan, np.float32)
+    ticket = 0
+    for b in rng.permutation(blocks):
+        for wp in range(warps):
+            p = np.arange(b * warps + wp, pairs, blocks * warps)
+            assert np.isnan(out[p]).all()   # each pair written once
+            out[p] = sums[p]
+        ticket += 1
+    assert ticket == blocks and not np.isnan(out[:pairs]).any()
+    out[pairs:] = _emulate_chunk_combine(out[:pairs].reshape(nb, s), CS_TILE)
+    return out[:pairs].reshape(nb, s), out[pairs:]
+
+
+def _emulate_newton_terms_kernel(X, t, m, w):
+    """``newton_terms_kernel``: a warp per 1024-row tile, lane l owning rows
+    l + 32a; the logit in ascending j, p from the plain version's
+    ``torch.exp`` (the same call on the same (N,) tensor: only exp is free),
+    r and s (0 past N, where X is staged as 0), then term by term the 32
+    values a lane through ``chunk_tree``, stored term-major; pass 2: the
+    tree over each 1024 tiles of every term, the group sums combined in
+    order, g and the mirrored H. Returns (tile partials (n_tiles, Q), g,
+    H)."""
+    import torch
+    n, d = X.shape
+    q = d + d * (d + 1) // 2
+    n_tiles = max(1, -(-n // 1024))
+    z = np.zeros(n, np.float32)
+    for j in range(d):
+        z = z + X[:, j] * w[j]
+    e = torch.exp(-torch.from_numpy(z)).numpy()
+    p = np.float32(1.0) / (np.float32(1.0) + e)
+    rows = n_tiles * 1024
+
+    def regs(a):   # (rows,) -> (n_tiles, 32 registers, 32 lanes)
+        return a.reshape(n_tiles, 32, 32)
+
+    r = np.zeros(rows, np.float32)
+    s = np.zeros(rows, np.float32)
+    r[:n] = m * (p - t)
+    s[:n] = (m * p) * (np.float32(1.0) - p)
+    Xs = np.zeros((rows, d), np.float32)
+    Xs[:n] = X
+    terms = [regs(r) * regs(Xs[:, j]) for j in range(d)]
+    terms += [(regs(s) * regs(Xs[:, j])) * regs(Xs[:, k])
+              for j in range(d) for k in range(j, d)]
+    part = _emulate_warp_tree(np.stack(terms, axis=1))     # (n_tiles, Q)
+    assert part.shape == (n_tiles, q)
+    term_major = np.ascontiguousarray(part.T)              # (Q, n_tiles)
+    groups = _emulate_chunk_pairs(term_major.T)            # (groups, Q)
+    tot = _emulate_chunk_combine(groups, NT_COMBINE)
+    lo = np.minimum.outer(np.arange(d), np.arange(d))
+    hi = np.maximum.outer(np.arange(d), np.arange(d))
+    H = tot[d + lo * d - lo * (lo - 1) // 2 + (hi - lo)]
+    return part, tot[:d], H
+
+
+def _check_chunk_sums_kernel_order(n, s, rng):
+    """The emulated kernel against ``chunk_sums_plain``, bit for bit; one
+    column all -0.0 (with no +0.0 padding, N a multiple of 1024, its
+    total stays -0.0), one of signed zeros and small integers (exact
+    sums, many ties)."""
+    from repro_torch.kernels import segment_stats as ss
+    vals = rng.normal(0, 100, (n, s)).astype(np.float32)
+    vals[:, 0] = -0.0
+    if s > 1:
+        vals[:, 1] = rng.choice(np.float32([-0.0, 0.0, 1.0, -1.0]), n)
+    parts, tot = _emulate_chunk_sums_kernel(vals, rng)
+    want_parts, want_tot = ss.chunk_sums_plain(_t(vals))
+    np.testing.assert_array_equal(parts.view(np.uint32),
+                                  want_parts.numpy().view(np.uint32))
+    np.testing.assert_array_equal(tot.view(np.uint32),
+                                  want_tot.numpy().view(np.uint32))
+    if n % 1024 == 0:
+        assert tot.view(np.uint32)[0] == np.float32(-0.0).view(np.uint32)
+
+
+def _check_newton_terms_kernel_order(n, d, rng):
+    """The emulated kernel against the plain version, bit for bit: its tile
+    partials against ``chunk_sums_plain(newton_row_terms_plain(...))[0]``,
+    g and H against ``logistic_newton_terms_plain``."""
+    from repro_torch.kernels import logistic_grad as lg
+    from repro_torch.kernels import segment_stats as ss
+    X = rng.normal(0, 1.5, (n, d)).astype(np.float32)
+    X[:, -1] = 1.0
+    t = (rng.random(n) < 0.35).astype(np.float32)
+    m = (rng.random(n) < 0.9).astype(np.float32)
+    w = rng.normal(0, 0.7, d).astype(np.float32)
+    part, g, H = _emulate_newton_terms_kernel(X, t, m, w)
+    args = [_t(a) for a in (X, t, m, w)]
+    want_part, _ = ss.chunk_sums_plain(lg.newton_row_terms_plain(*args))
+    want_g, want_H = lg.logistic_newton_terms_plain(*args)
+    for got, want in ((part, want_part), (g, want_g), (H, want_H)):
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.numpy().view(np.uint32))
+    np.testing.assert_array_equal(H, H.T)
+
+
 def _port_wrapper_raises_on_a_device_without_a_kernel():
     import torch
     from repro_torch.kernels import segment_stats as ss
@@ -641,3 +810,22 @@ def test_plain_versions_match_the_kernels_loops():
         _check_scatter_merge_plain_matches_kernel_loop(c, b, s)
     for n, s in ((1024, 2), (3000, 5), (1, 1), (5000, 1)):
         _check_chunk_sums_plain_matches_kernel_loop(n, s)
+
+
+def test_register_tree_kernels_orders_match_plain():
+    """The register-tree kernels of ``csrc/chunk_tree.cuh``, emulated step
+    by step over whole arrays (lane / register layout, shuffles, the
+    one-block and the ticket combine, the Newton kernel's warp-per-tile
+    terms and its pass 2), bit for bit (as uint32) against the plain
+    versions: ragged N, S = 1, 5, 14 and 40 (two column groups), chunk
+    counts on both sides of the one-block limit and past one combine
+    buffer; d = 1, 4, 9 and 64, and more than 1024 tiles (two groups in
+    pass 2)."""
+    rng = np.random.default_rng(18)
+    for n, s in ((1, 1), (1023, 5), (1025, 14), (70001, 1), (70001, 5),
+                 (70001, 14), (65536, 1), (65537, 1), (131072, 2),
+                 (2049, 40), (300001, 14)):
+        _check_chunk_sums_kernel_order(n, s, rng)
+    for n, d in ((1, 1), (1023, 4), (1025, 9), (1023, 64), (70001, 4),
+                 (70001, 9), (5000, 1), ((1 << 20) + 1500, 1)):
+        _check_newton_terms_kernel_order(n, d, rng)

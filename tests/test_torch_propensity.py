@@ -101,10 +101,12 @@ def _newton_inputs(rng, n, d):
 
 
 def _emulate_kernel_partials(V, qb=16):
-    """Pass 1 of ``csrc/logistic_grad.cu`` step by step in numpy on the
-    per-row terms V (N, Q): per 1024-row tile, thread i holds rows i and
-    i + 512; terms reduce qb at a time, each halving step's work item k
-    taking term ``k >> lg`` and slot ``k & (h - 1)``."""
+    """The tile pass of a shared-memory design of
+    ``csrc/logistic_grad.cu``, step by step in numpy on the per-row terms
+    V (N, Q): per 1024-row tile, thread i holds rows i and i + 512; terms
+    reduce qb at a time, each halving step's work item k taking term
+    ``k >> lg`` and slot ``k & (h - 1)`` (the register-tree kernel's own
+    emulation is in ``tests/test_torch_kernels.py``)."""
     n, q_total = V.shape
     n_tiles = max(1, -(-n // 1024))
     Vp = np.zeros((n_tiles * 1024, q_total), np.float32)
