@@ -57,8 +57,18 @@ Phases; each one that fails exits non-zero:
 4. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, with timings of the kernel, the plain
    version and a PyTorch library yardstick computing the same function
-   (where there is one), and the least time the card could take; the
-   tree kernels (``segment_sums``, ``scatter_merge``,
+   (where there is one), and the least time the card could take;
+   ``cem_keys`` through the paths' call ``cem_keys_columns`` (the batch's
+   named columns in their own dtypes, read where they lie) at the
+   replicated ingest's 2^18 x 7 and at the offline ``cem()`` call's
+   2^22 x 4, bit for bit its plain version over the stacked f32 columns,
+   one device operation a call, timed by CUDA events and by the profiler
+   beside the route the paths took before (``torch.stack`` of the f32
+   conversions, then the matrix form), with its launches on each of the
+   three paths, the host microseconds of a call split into its guards,
+   allocation, packing and ``Kernel.launch`` (beside ``Kernel.launch`` as
+   it was before it read PyTorch's raw stream handle) and the pieces of a
+   launch; the tree kernels (``segment_sums``, ``scatter_merge``,
    ``scatter_merge_parts``) bit for bit as integer views (-0.0 is not
    +0.0), with their device time by kernel from the profiler beside the
    event-timed ms, ``segment_sums`` also at the shape of an uncached
@@ -68,7 +78,9 @@ Phases; each one that fails exits non-zero:
    ``chunk_sums`` bit for bit at the query's shape (10,240 x 5) and at the
    propensity standardisation's (2^22 x 4), timed by CUDA events and by
    the profiler beside ``torch.sum`` over the zero-padded reshape, with
-   the host microseconds per call of both (1,000 calls, one synchronise);
+   the host microseconds per call of both (1,000 calls, one synchronise)
+   and of the steps of the wrapper, ``Kernel.launch`` beside its earlier
+   form;
    ``logistic_newton_terms`` at both of its shapes (the reservoir,
    8192 x 4, and the whole relation, 2^22 x 4), run twice to show
    bitwise repeatability, and timed by CUDA events and by the profiler;
@@ -556,16 +568,15 @@ def kernel_checks(torch, np, eng, batch, counts):
     from repro_torch.core import cube as cube_mod
     from repro_torch.core import groupby
     from repro_torch.core import fused as fused_mod
-    from repro_torch.kernels import cem_keys as ck
     from repro_torch.kernels import segment_stats as ss
+    from repro_torch.kernels.ops import cem_keys_columns
 
     out = []
     dev = eng.device
     cols = {c: batch.columns[c] for c in eng._row_cols}
     tab = eng._cutpoints
-    X = torch.stack([cols[n].to(torch.float32) for n in tab.names], 1)
-    valid = batch.valid.contiguous()
-    n, d = X.shape
+    valid = batch.valid
+    n = valid.shape[0]
     tn = eng._tnames
 
     def record(name, err, ms, plain_ms, lib_ms, n_bytes, n_ops, shapes):
@@ -576,23 +587,15 @@ def kernel_checks(torch, np, eng, batch, counts):
                         plain_ms=plain_ms, bound_ms=b, bound_us=b * 1e3,
                         bound_by=by, library_ms=lib_ms, shapes=shapes))
 
-    # cem_keys: the batch's covariates, (2^18, 7)
-    args = (X, tab.cutpoints, tab.n_cuts, tab.widths, valid)
-    kh, kl = ck.cem_keys(*args)
-    ph, pl = ck.cem_keys_plain(*args)
-    err = float(max((kh - ph).abs().max(), (kl - pl).abs().max()))
-    if not (torch.equal(kh, ph) and torch.equal(kl, pl)):
-        fail(f"cem_keys differs from its plain version ({err})")
-    n_cuts = int(tab.n_cuts.sum())
-    # the bytes the function needs: X, the bool mask and the cutpoint
-    # table in, two u32 key words per row out; the port holds each word in
-    # an int64 tensor, so the kernel writes 16 bytes per row, not 8
-    needed = n * d * 4 + n + tab.cutpoints.numel() * 4 + n * 8
-    record("cem_keys", err, timed(torch, lambda: ck.cem_keys(*args), 50),
-           timed(torch, lambda: ck.cem_keys_plain(*args), 5), None,
-           needed, n * n_cuts,
-           dict(X=[n, d], cutpoints=list(tab.cutpoints.shape),
-                bytes_needed=needed, bytes_int64_layout=needed + n * 8))
+    # cem_keys: the path call on the batch's named columns, (2^18, 7)
+    ingest = cem_keys_shape(torch, cols, valid, tab)
+    kh, kl = cem_keys_columns(cols, valid, tab)
+    record("cem_keys", ingest["max_abs_err"], ingest["ms"],
+           ingest["plain_ms"], None, ingest["bytes_needed"],
+           ingest["compares"], dict(ingest=ingest))
+    out[-1].update({k: ingest[k] for k in (
+        "device_ms", "device_by_kernel", "device_ops_per_call")})
+    out[-1]["host_split_us"] = cem_keys_host_split(torch, cols, valid, tab)
 
     # segment_sums: the delta build's group-by, (2^18, 12), over the
     # G valid groups as the engine calls it (the trailing pseudo-group of
@@ -727,6 +730,145 @@ def kernel_checks(torch, np, eng, batch, counts):
     return out, pseudo
 
 
+def cem_keys_shape(torch, cols, valid, tab) -> dict:
+    """The path call ``cem_keys_columns`` on ``cols`` (named columns in
+    their own dtypes) bit for bit against its plain version over the
+    stacked f32 columns, one device op a call; event-timed and profiled
+    beside the route the paths took before (``torch.stack`` of the f32
+    conversions, then the matrix form), which must give the same keys; and
+    the bound."""
+    from repro_torch.kernels import cem_keys as ck
+    from repro_torch.kernels.ops import cem_keys_columns
+    names = tab.names
+    n = valid.shape[0]
+
+    def path():
+        return cem_keys_columns(cols, valid, tab)
+
+    def stacked():
+        return torch.stack([cols[c].to(torch.float32) for c in names], 1)
+
+    def plain():
+        return ck.cem_keys_plain(stacked(), tab.cutpoints, tab.n_cuts,
+                                 tab.widths, valid.to(torch.bool))
+
+    def stack_route():
+        return ck.cem_keys(stacked(), tab.cutpoints, tab.n_cuts, tab.widths,
+                           valid)
+
+    kh, kl = path()
+    ph, pl = plain()
+    err = float(max((kh - ph).abs().max(), (kl - pl).abs().max()))
+    if not (torch.equal(kh, ph) and torch.equal(kl, pl)):
+        fail(f"cem_keys at {n} x {len(names)} differs from its plain version "
+             f"({err})")
+    sh, sl = stack_route()
+    if not (torch.equal(sh, ph) and torch.equal(sl, pl)):
+        fail(f"cem_keys: the matrix form at {n} x {len(names)} differs")
+    split = device_split(torch, path)
+    one_op(f"cem_keys_columns at {n} x {len(names)}", split)
+    old = device_split(torch, stack_route)
+    # the bytes the function needs: each column in its dtype, the mask and
+    # the cutpoint table in, two u32 key words per row out; the port holds
+    # each word in an int64 tensor, so the kernel writes 16 bytes per row
+    needed = (n * sum(cols[c].element_size() for c in names)
+              + n * valid.element_size() + tab.cutpoints.numel() * 4 + n * 8)
+    compares = n * sum(tab.n_cuts)
+    b, by = bound_ms(needed, compares)
+    b64, _ = bound_ms(needed + n * 8, compares)
+    return dict(rows=n, columns={c: str(cols[c].dtype)[6:] for c in names},
+                cutpoints=list(tab.cutpoints.shape), max_abs_err=err,
+                ms=timed(torch, path, 50), **split,
+                plain_ms=timed(torch, plain, 5), bound_ms=b,
+                bound_us=b * 1e3, bound_by=by, bytes_needed=needed,
+                bytes_int64_layout=needed + n * 8,
+                int64_layout_bound_us=b64 * 1e3, compares=compares,
+                stack_route=dict(ms=timed(torch, stack_route, 50),
+                                 device_ms=old["device_ms"],
+                                 device_by_kernel=old["device_by_kernel"],
+                                 device_ops_per_call=old[
+                                     "device_ops_per_call"]))
+
+
+def stream_object_launch(torch, kernel, *args) -> None:
+    """``Kernel.launch`` as it was before it read PyTorch's raw hooks (one
+    device), kept to time it beside the current one in the same run: the
+    current device through ``torch.cuda.current_device()``, a
+    ``torch.cuda.Stream`` object built for its handle."""
+    from repro_torch.kernels import build
+    fn = kernel._fn
+    current = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    code = (fn(*args, build.ticket(current, stream), stream)
+            if kernel.ticketed else fn(*args, stream))
+    if code != 0:
+        fail(f"{kernel.name}: launch failed ({code})")
+    kernel.launches += 1
+
+
+def cem_keys_host_split(torch, cols, valid, tab, rows: int = 4096) -> dict:
+    """Host microseconds per call (``host_us``: 1,000 calls, no synchronise
+    between them) of the ``cem_keys`` path call and of its steps, on the
+    first ``rows`` rows of the batch (so the card never holds the host
+    back): the guards (``_launch_words``: the checks and each column's
+    pointer, stride and dtype code), the allocation of the key words (two
+    tensors, as the wrapper allocates them, and one (2, N) tensor unbound
+    into two, the other way), the packing of the launch's words, and
+    ``Kernel.launch``, beside its earlier form
+    (:func:`stream_object_launch`); then the pieces of a launch: the
+    current device and stream each way, the ticket lookup, and the ctypes
+    call of a C entry that returns before launching (3 arguments, and the
+    9 of ``segment_sums_launch``)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cem_keys as ck
+    from repro_torch.kernels.ops import cem_keys_columns
+    names = tab.names
+    cols = {c: cols[c][:rows] for c in names}
+    valid = valid[:rows]
+    dev = valid.device
+    col_list = [cols[c] for c in names]
+    words = ck._launch_words(col_list, valid, tab.cutpoints, tab.n_cuts)
+    d = len(names)
+    call = ck._CALLS[d]
+    keys = torch.empty((2, rows), dtype=torch.int64, device=dev)
+    head = (keys.data_ptr(), keys.data_ptr() + 8 * rows,
+            tab.cutpoints.data_ptr(), valid.data_ptr(), 1,
+            ck.DTYPES[valid.dtype])
+    payload = call.pack(*head, rows, d, tab.cutpoints.shape[1], *words)
+    empty = call.pack(*head, 0, d, tab.cutpoints.shape[1], *words)
+    get_device, raw_stream = build._cuda_hooks()
+    index = get_device()
+    stream = raw_stream(index)
+    seg = build.KERNELS["segment_sums"]._load()
+    return dict(
+        rows=rows,
+        call=host_us(torch, lambda: cem_keys_columns(cols, valid, tab)),
+        guards=host_us(torch, lambda: ck._launch_words(
+            [cols[c] for c in names], valid, tab.cutpoints, tab.n_cuts)),
+        allocation=host_us(torch, lambda: (
+            torch.empty(rows, dtype=torch.int64, device=dev),
+            torch.empty(rows, dtype=torch.int64, device=dev))),
+        allocation_one_unbound=host_us(torch, lambda: torch.empty(
+            2, rows, dtype=torch.int64, device=dev).unbind()),
+        pack=host_us(torch, lambda: call.pack(
+            *head, rows, d, tab.cutpoints.shape[1], *words)),
+        launch=host_us(torch, lambda: ck.KERNEL.launch(dev, payload,
+                                                       tab.fields)),
+        launch_stream_object=host_us(torch, lambda: stream_object_launch(
+            torch, ck.KERNEL, payload, tab.fields)),
+        launch_pieces=dict(
+            current_device=host_us(torch, torch.cuda.current_device),
+            current_stream_object=host_us(
+                torch, lambda: torch.cuda.current_stream().cuda_stream),
+            raw_device=host_us(torch, get_device),
+            raw_stream=host_us(torch, lambda: raw_stream(index)),
+            ticket=host_us(torch, lambda: build.ticket(index, stream)),
+            ctypes_3_args_no_launch=host_us(
+                torch, lambda: ck.KERNEL._fn(empty, tab.fields, stream)),
+            ctypes_9_args_no_launch=host_us(
+                torch, lambda: seg(0, 0, 0, 0, 0, 0, 0, 0, stream))))
+
+
 def chunk_sums_host_split(torch, vals) -> dict:
     """Host microseconds per call of each step of the ``chunk_sums``
     wrapper on ``vals`` (``host_us``: 1,000 calls each, no synchronise
@@ -751,7 +893,9 @@ def chunk_sums_host_split(torch, vals) -> dict:
             (nb + 1, s), dtype=torch.float32, device=dev)),
         views=host_us(torch, lambda: (buf[:nb], buf[nb])),
         launch=host_us(torch, lambda: ss.CHUNK_SUMS.launch(
-            dev, vals.data_ptr(), buf.data_ptr(), n, s, nb)))
+            dev, vals.data_ptr(), buf.data_ptr(), n, s, nb)),
+        launch_stream_object=host_us(torch, lambda: stream_object_launch(
+            torch, ss.CHUNK_SUMS, vals.data_ptr(), buf.data_ptr(), n, s, nb)))
 
 
 def chunk_sums_standardisation(torch, table) -> dict:
@@ -1515,7 +1659,8 @@ def run_offline(torch, np, joined, true_sate):
     """The offline path on the card (launch counters set to 0 just before
     and read just after it), the same calls on the CPU, and the two new
     kernels against their plain versions. Prints the ``offline`` line and
-    returns the two kernel rows."""
+    returns the two kernel rows, the offline ``segment_sums`` shapes and
+    the path's launch counts."""
     from repro_torch.kernels import build
     build.reset_launches()
     g, g_clock = offline_relation(torch, joined)
@@ -1564,7 +1709,8 @@ def run_offline(torch, np, joined, true_sate):
         "cpu_ms": c_clock.ms, "cpu_pass_s": cpu_s,
         "launches": counts, "cuda_vs_cpu": vs_cpu}}, default=lambda a: (
             a.tolist())))
-    return [knn_row, sweep_row], offline_segment_sums(torch, g["sub"], joined)
+    return ([knn_row, sweep_row],
+            offline_segment_sums(torch, g["sub"], joined), counts)
 
 
 def main() -> None:
@@ -1580,10 +1726,12 @@ def main() -> None:
 
     from repro_torch.core import (CoarsenSpec, OnlineEngine,
                                   PartitionedOnlineEngine)
+    from repro_torch.core.cem import make_codec
     from repro_torch.core.propensity import propensity_scores
     from repro_torch.data import flightgen
     from repro_torch.data.join import fk_join
     from repro_torch.kernels import build
+    from repro_torch.kernels.ops import CutpointTable
 
     # phase 1: the card
     smi = subprocess.run(
@@ -1700,8 +1848,8 @@ def main() -> None:
         "vs_replicated": layouts}}))
 
     # phase 3, offline: the paper's Table 3 methods on the same relation
-    offline_rows, offline_sums = run_offline(torch, np, joined,
-                                             data.true_sate)
+    offline_rows, offline_sums, offline_counts = run_offline(
+        torch, np, joined, data.true_sate)
 
     # phase 4: every kernel against its plain version, timed
     kernels, pseudo = kernel_checks(torch, np, gpu_eng, batches[1], counts)
@@ -1712,6 +1860,17 @@ def main() -> None:
         if row["name"] == "chunk_sums":
             row["shapes"]["standardisation"] = chunk_sums_standardisation(
                 torch, joined)
+        if row["name"] == "cem_keys":
+            # the offline cem() call's shape: the whole relation's Table 3
+            # covariates
+            row["shapes"]["offline"] = cem_keys_shape(
+                torch, joined.columns, joined.valid, CutpointTable.for_codec(
+                    make_codec(table3_specs(CoarsenSpec)),
+                    table3_specs(CoarsenSpec), joined.device))
+            row["launches_by_path"] = {
+                "replicated": counts["cem_keys"],
+                "partitioned": part_counts["cem_keys"],
+                "offline": offline_counts["cem_keys"]}
     kernels.append(newton_checks(torch, gpu_eng, joined, gpu_full, counts))
     kernels += offline_rows
     # the same stream in turns on this card: replicated with and without

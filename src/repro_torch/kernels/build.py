@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_BYTES = ctypes.c_char_p   # a host array, passed without a copy
 
 
 def _nvcc() -> str:
@@ -92,26 +93,24 @@ class Kernel:
     def launch(self, device: torch.device, *args) -> None:
         """Launch on ``device``'s current stream; raise on a launch error.
         Switches the current device only when ``device`` is another card
-        (the engine launches hundreds of times per ingest on one card)."""
+        (the engine launches hundreds of times per ingest on one card).
+        The current device and stream come from PyTorch's C hooks as plain
+        ints (:func:`_cuda_hooks`), not as ``torch.cuda`` objects."""
         fn = self._fn or self._load()
-        current = torch.cuda.current_device()
-        if device.index is None or device.index == current:
-            code = self._call(fn, current, args)
-        else:
+        get_device, raw_stream = _HOOKS or _cuda_hooks()
+        current = get_device()
+        if device.index is not None and device.index != current:
             with torch.cuda.device(device):
-                code = self._call(fn, device.index, args)
+                return self.launch(device, *args)
+        stream = raw_stream(current)
+        code = (fn(*args, ticket(current, stream), stream) if self.ticketed
+                else fn(*args, stream))
         if code != 0:
             msg = self._lib.repro_cuda_error_string(code).decode()
             raise RuntimeError(
                 f"CUDA kernel {self.name!r} failed to launch: error {code} "
                 f"({msg})")
         self.launches += 1
-
-    def _call(self, fn, index: int, args) -> int:
-        stream = torch.cuda.current_stream().cuda_stream
-        if self.ticketed:
-            return fn(*args, ticket(index, stream), stream)
-        return fn(*args, stream)
 
     def function(self, entry: str, argtypes: Sequence, restype=ctypes.c_int):
         """Another C function of this kernel's library (a sizing helper, or
@@ -122,6 +121,18 @@ class Kernel:
         fn.argtypes = list(argtypes)
         fn.restype = restype
         return fn
+
+
+_HOOKS: Tuple = ()
+
+
+def _cuda_hooks() -> Tuple:
+    """PyTorch's current-device query and current raw stream handle of a
+    device (what Triton's launcher reads), looked up at the first launch:
+    a CPU build of PyTorch has neither."""
+    global _HOOKS
+    _HOOKS = (torch._C._cuda_getDevice, torch._C._cuda_getCurrentRawStream)
+    return _HOOKS
 
 
 # (device index, stream handle) -> (counter, its address)
@@ -187,8 +198,7 @@ def launch_counts() -> Dict[str, int]:
 
 KERNELS: Dict[str, Kernel] = {
     "cem_keys": Kernel(
-        "cem_keys", "cem_keys.cu", "cem_keys_launch",
-        [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P]),
+        "cem_keys", "cem_keys.cu", "cem_keys_launch", [_BYTES, _BYTES, _P]),
     "segment_sums": Kernel(
         "segment_sums", "segment_sums.cu", "segment_sums_launch",
         [_P, _P, _P, _P, _P, _I64, _I32, _I64, _P]),

@@ -12,7 +12,7 @@ from typing import TYPE_CHECKING, Mapping, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.cem_keys import cem_keys
+from repro_torch.kernels import cem_keys as ck
 
 if TYPE_CHECKING:     # importing repro_torch.core imports this module
     from repro_torch.core.coarsen import CoarsenSpec
@@ -22,13 +22,16 @@ if TYPE_CHECKING:     # importing repro_torch.core imports this module
 @dataclasses.dataclass(frozen=True)
 class CutpointTable:
     """The fused coarsen + pack kernel's side inputs for one codec, built
-    once per engine and kept on its device: (d, C) f32 cutpoints padded
-    with +inf, real-cutpoint counts and bit widths, in codec field order."""
+    once per engine: the (d, C) f32 cutpoints padded with +inf, on its
+    device; and on the host the real-cutpoint counts, the bit widths and
+    the launch's per-codec part (:func:`repro_torch.kernels.cem_keys.fields`),
+    in codec field order."""
 
     names: Tuple[str, ...]
     cutpoints: torch.Tensor
-    n_cuts: torch.Tensor
-    widths: torch.Tensor
+    n_cuts: Tuple[int, ...]
+    widths: Tuple[int, ...]
+    fields: bytes
 
     @staticmethod
     def build(lists: Sequence[Sequence[float]], widths: Sequence[int],
@@ -37,11 +40,11 @@ class CutpointTable:
         cp = torch.full((len(lists), cmax), float("inf"), dtype=torch.float32)
         for j, c in enumerate(lists):
             cp[j, :len(c)] = torch.tensor(c, dtype=torch.float32)
+        n_cuts = tuple(len(c) for c in lists)
+        widths = tuple(int(w) for w in widths)
         return CutpointTable(
-            names=tuple(names), cutpoints=cp.to(device),
-            n_cuts=torch.tensor([len(c) for c in lists],
-                                dtype=torch.int32).to(device),
-            widths=torch.tensor(list(widths), dtype=torch.int32).to(device))
+            names=tuple(names), cutpoints=cp.to(device), n_cuts=n_cuts,
+            widths=widths, fields=ck.fields(n_cuts, widths))
 
     @staticmethod
     def for_codec(codec: KeyCodec, specs: Mapping[str, CoarsenSpec],
@@ -56,8 +59,9 @@ class CutpointTable:
 def cem_keys_columns(columns: Mapping[str, torch.Tensor], valid: torch.Tensor,
                      table: CutpointTable
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Coarsen + pack a batch's named columns through the kernel."""
-    X = torch.stack([columns[n].to(torch.float32) for n in table.names],
-                    dim=1)
-    return cem_keys(X, table.cutpoints, table.n_cuts, table.widths,
-                    valid.to(torch.bool).contiguous())
+    """Coarsen + pack a batch's named columns (any dtype the kernel reads,
+    any stride): on CUDA one launch of the kernel, which reads them where
+    they lie; on the CPU its plain version over the stacked f32 columns."""
+    return ck.cem_keys_cols([columns[n] for n in table.names], valid,
+                            table.cutpoints, table.n_cuts, table.widths,
+                            table.fields)

@@ -46,6 +46,149 @@ def _case_cem_keys_matches_plain():
     assert torch.equal(kh, ph) and torch.equal(kl, pl)
 
 
+# the dtypes the column route reads natively (``cem_keys.DTYPES``)
+CEM_DTYPES = ("float32", "float64", "float16", "bfloat16", "int64", "int32",
+              "int16", "int8", "uint8", "bool")
+
+
+def _cem_columns(rng, n, dev, how):
+    """One column of every dtype the kernel reads, on ``dev``: ints around
+    2^24 and 2^31 - 1, f64 values halfway between f32 neighbours, +-0.0,
+    +-inf and NaN; with cutpoints where the rounding decides the bucket.
+    ``how``: contiguous, a slice of a larger buffer (stride 3) or a column
+    of a row-major matrix (stride 2). Returns (columns, cut lists)."""
+    import torch
+    ints = np.where(rng.random(n) < 0.5, (1 << 24) + rng.integers(-6, 7, n),
+                    2147483647 - rng.integers(0, 200, n))
+    pool = np.sort(rng.normal(0, 4, 6).astype(np.float32))
+    a = rng.choice(pool, n).astype(np.float64)
+    b = np.nextafter(a.astype(np.float32), np.float32(np.inf))
+    half = (a + b.astype(np.float64)) / 2
+    floats = rng.normal(0, 3, n)
+    at = rng.random(n) < 0.05
+    floats[at] = rng.choice([0.0, -0.0, np.inf, -np.inf, np.nan],
+                            int(at.sum()))
+    int_cuts = [-2.0, 0.0, 16777216.0, 16777220.0, 2147483520.0,
+                2147483648.0]
+    spec = {
+        "float32": (floats, sorted(rng.normal(0, 2, 5).tolist() + [0.0])),
+        "float64": (np.where(rng.random(n) < 0.9, half, floats),
+                    sorted(set(pool.tolist()) | set(
+                        np.nextafter(pool, np.float32(np.inf)).tolist()))),
+        # the integer grid 1, 2, 3: the kernel's closed-form count
+        "float16": (np.where(rng.random(n) < 0.5, floats,
+                             rng.integers(-2, 9, n) / 2), [1.0, 2.0, 3.0]),
+        "bfloat16": (floats, [-1.0, 0.0, 1.0, 2.5]),
+        "int64": (ints * np.where(rng.random(n) < 0.5, 1, -4),
+                  int_cuts + [float(1 << 33)]),
+        "int32": (ints * np.where(rng.random(n) < 0.9, 1, -1), int_cuts),
+        "int16": (rng.integers(-32768, 32768, n), [-1000.0, 0.0, 7.0]),
+        "int8": (rng.integers(-128, 128, n), [-3.0, 0.0, 1.0, 100.0]),
+        "uint8": (rng.integers(0, 256, n), [float(c) for c in range(1, 16)]),
+        "bool": (rng.random(n) < 0.4, [1.0]),
+    }
+    cols, cuts = {}, []
+    for name in CEM_DTYPES:
+        vals, c = spec[name]
+        dt = getattr(torch, name)
+        # ints exactly, the rest through f64 (bool, f16, bf16 on the card)
+        exact = np.asarray(vals, np.int64 if "int" in name else np.float64)
+        t = torch.from_numpy(exact).to(dev).to(dt)
+        if how == "slice":
+            big = torch.zeros((3 * n,), dtype=dt, device=dev)
+            big[1::3] = t
+            t = big[1::3]
+        elif how == "matrix":
+            m = torch.zeros((n, 2), dtype=dt, device=dev)
+            m[:, 1] = t
+            t = m[:, 1]
+        cols[name] = t
+        cuts.append(c)
+    return cols, cuts
+
+
+def _case_cem_keys_column_route():
+    """The column route (``ops.cem_keys_columns``) on the card bitwise its
+    plain version over the stacked f32 columns, every dtype the kernel
+    reads, contiguous and strided, at n = 1, 2^18 + 3 (one pass of the
+    grid) and 2^21 + 5 (the grid strides); one launch, no host read and no
+    device op but the kernel per call; the matrix form equal to the column
+    form; the refusals of the wrapper and of the C entry."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cem_keys as ck
+    from repro_torch.kernels.ops import CutpointTable, cem_keys_columns
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    widths = [3, 4, 3, 3, 4, 3, 2, 3, 4, 1]
+    for n in (1, (1 << 18) + 3, (1 << 21) + 5):
+        for how in ("contiguous", "slice", "matrix"):
+            cols, cuts = _cem_columns(rng, n, dev, how)
+            tab = CutpointTable.build(cuts, widths, CEM_DTYPES, dev)
+            valid = _t(rng.random(n) > 0.1, dev)
+            before = ck.KERNEL.launches
+            hi, lo = cem_keys_columns(cols, valid, tab)
+            assert ck.KERNEL.launches == before + 1
+            X = torch.stack([cols[c].to(torch.float32) for c in CEM_DTYPES],
+                            1)
+            ph, pl = ck.cem_keys_plain(X, tab.cutpoints, tab.n_cuts,
+                                       tab.widths, valid)
+            assert torch.equal(hi, ph) and torch.equal(lo, pl), (n, how)
+            # the matrix form: X's columns as strided views, same kernel
+            mh, ml = ck.cem_keys(X, tab.cutpoints, tab.n_cuts, tab.widths,
+                                 valid)
+            assert torch.equal(mh, ph) and torch.equal(ml, pl), (n, how)
+    # a float mask is read as Tensor.to(bool) (NaN true, -0.0 false)
+    fmask = torch.where(valid, torch.tensor(float("nan"), device=dev),
+                        torch.tensor(-0.0, device=dev))
+    fh, fl = cem_keys_columns(cols, fmask, tab)
+    assert torch.equal(fh, hi) and torch.equal(fl, lo)
+    # one kernel a call: no torch op that runs on the card, no host read
+    before = ck.KERNEL.launches
+    ops = _torch_ops(lambda: cem_keys_columns(cols, valid, tab))
+    assert ck.KERNEL.launches == before + 2
+    assert set(ops) <= NO_DEVICE_WORK, ops
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cem_keys_columns(cols, valid, tab)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the launch reads PyTorch's current stream, a side stream included
+    get_device, raw_stream = build._cuda_hooks()
+    assert raw_stream(get_device()) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert raw_stream(get_device()) == side.cuda_stream
+    # refusals: a column on the host, a key over 63 bits, 65 columns
+    names = list(CEM_DTYPES)
+    with pytest.raises(ValueError):
+        ck.cem_keys_cols([cols[c] for c in names[:-1]] + [cols["bool"].cpu()],
+                         valid, tab.cutpoints, tab.n_cuts, tab.widths)
+    with pytest.raises(ValueError):
+        ck.cem_keys_cols([cols[c] for c in names], valid, tab.cutpoints,
+                         tab.n_cuts, (7,) * 10)
+    one = cols["float32"]
+    with pytest.raises(ValueError):
+        ck.cem_keys_cols([one] * 65, valid,
+                         torch.full((65, 1), float("inf"), device=dev),
+                         (0,) * 65, (0,) * 65)
+    # the C entry refuses a field over 32 bits: Kernel.launch raises and
+    # counts nothing
+    out = torch.empty((2, n), dtype=torch.int64, device=dev)
+    call = ck.struct.pack("=12q", out.data_ptr(), out.data_ptr() + 8 * n,
+                          tab.cutpoints.data_ptr(), valid.data_ptr(), 1,
+                          ck.DTYPES[torch.bool], n, 1,
+                          tab.cutpoints.shape[1], one.data_ptr(), 1, 0)
+    before = ck.KERNEL.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        ck.KERNEL.launch(dev, call, ck.struct.pack("=2i", 3, 33))
+    assert ck.KERNEL.launches == before
+    ck.KERNEL.launch(dev, call, ck.fields((3,), (32,)))
+    assert ck.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+
+
 def _bits(x):
     """A float tensor's bits: ``torch.equal`` takes -0.0 for +0.0."""
     import torch
@@ -190,18 +333,24 @@ DEVICE_OPS = {"segment_sums": 3, "scatter_merge": 2, "scatter_merge_parts": 3}
 def _device_ops(fn):
     """Device operations (kernels, memsets, copies) one call of ``fn``
     issues, by name, as the profiler records them (after one warm-up
-    call)."""
+    call). A window in which the profiler recorded no device activity at
+    all (it happens now and then for a window of one call, ``PERF.md``
+    §7) is profiled again, at most twice, as ``chip_smoke.py`` does."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        if ops:
+            break
+    return ops
 
 
 def _case_tree_kernels_device_ops_and_empty_inputs():
@@ -728,6 +877,16 @@ def test_register_tree_kernels_on_the_card(cuda):
     _case_register_tree_kernels_one_launch_per_call()
     _case_ticket_returns_to_zero()
     _case_register_tree_wrappers_refuse()
+
+
+def test_cem_keys_column_route_on_the_card(cuda):
+    """``cem_keys``: the column route bitwise its plain version over every
+    dtype and stride case, one device op a call, the launch on PyTorch's
+    current stream; and the ticketed ``chunk_sums`` and Newton kernels
+    putting their counters back to 0 after the lighter ``Kernel.launch``
+    (200 alternating calls, two streams)."""
+    _case_cem_keys_column_route()
+    _case_ticket_returns_to_zero()
 
 
 def test_partitioned_merge_and_engine_on_the_card_match_plain(cuda):

@@ -97,8 +97,8 @@ def _port_cem_keys(X, valid, raw):
           for j, k in enumerate(codec.names)}
     th, tl = codec.pack(tb, _t(valid))
     return dict(hi=hi.numpy(), lo=lo.numpy(), names=codec.names,
-                cutpoints=tab.cutpoints.numpy(), n_cuts=tab.n_cuts.tolist(),
-                widths=tab.widths.tolist(),
+                cutpoints=tab.cutpoints.numpy(), n_cuts=list(tab.n_cuts),
+                widths=list(tab.widths),
                 kernel_cutpoints=[specs[k].kernel_cutpoints()
                                   for k in codec.names],
                 own_pack_equal=bool(torch.equal(hi, th)
